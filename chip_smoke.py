@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the control-step kernel from humanoid_tpu_torch/csrc with nvcc, holds
-it against its plain PyTorch version at 4096 envs, trains `humanoid_ppo` for
-3 iterations at 4096 envs through scripts.train.main, and times the kernel.
-Each phase prints one JSON line before the next begins; a phase that fails
-raises and the script exits non-zero. The last three lines are the card's
-name and power limit, the kernel table, and {"ok": true, "device": ...}.
-Without a CUDA device, or without the package beside it, it exits non-zero
-before printing any result.
+Builds the control-step kernel and the heightfield sampler from
+humanoid_tpu_torch/csrc with nvcc (one nvcc per source, started together),
+holds each kernel against its plain PyTorch version at 4096 envs (the
+control step without and with its gains, body and planes inputs; the
+sampler on the full humanoid_ppo_terrain world; controls show that the bounds
+fail when the plain version drops an input), trains `humanoid_ppo` and
+`humanoid_ppo_terrain` for 3 iterations each at 4096 envs through
+scripts.train.main, and times the kernels. Each phase prints one JSON line
+before the next begins; a phase that fails raises and the script exits
+non-zero. The last three lines are the card's name and power limit, the
+kernel table, and {"ok": true, "device": ...}. Without a CUDA device, or
+without the package beside it, it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -25,10 +31,14 @@ N = 4096
 ITERATIONS = 3
 STEPS_PER_ITERATION = 60
 TIMED_LAUNCHES = 50
+TIMED_SAMPLES = 200
 PEAK_FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 # the reference package's own kernel-vs-XLA bounds (tests/test_physics_kernel.py)
 TOL_DU, TOL_POS, TOL_FOOT_FRACTION = 1e-2, 1e-5, 0.01
+TOL_SAMPLER_M = 1e-6             # the sampler and its plain version read the same cells
+RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands on
+SAMPLER_OPS_PER_SCAN, SAMPLER_OPS_PER_CONTACT = 13, 16
 
 
 def emit(phase, **fields):
@@ -47,42 +57,113 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def feet_loaded_state(kernel, model, default_pos, gen_seed=0):
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "operations": ops, "bytes": nbytes}
+
+
+def t32(x):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=DEVICE).contiguous()
+
+
+def settle(kernel, model, default_pos, planes=None, seed=0):
     """4096 envs standing on both feet: small random joint offsets held by
-    the PD targets, randomized base mass and friction, settled for 0.3 s
-    with the plain version. Returns (pack, masses, friction, targets)."""
+    the PD targets, randomized base mass and friction, settled for 0.3 s by
+    the kernel (on the flat plane, or on `planes`). Returns (pack, masses,
+    friction, targets)."""
     import numpy as np
     import torch
 
     from humanoid_tpu_torch.ops.physics_kernel import pack_state
     from humanoid_tpu_torch.physics.engine import PhysState
 
-    rng = np.random.default_rng(gen_seed)
-    dev = torch.device(DEVICE)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev).contiguous()
-
+    rng = np.random.default_rng(seed)
     qj = default_pos + rng.uniform(-0.05, 0.05, (N, model.nj))
     masses = np.tile(model.mass, (N, 1))
     masses[:, 0] += rng.uniform(-5.0, 5.0, N)
-    phys = PhysState(t(np.c_[np.zeros((N, 2)), np.full(N, 0.90)]),
-                     t(np.tile([1.0, 0.0, 0.0, 0.0], (N, 1))), t(qj),
-                     torch.zeros(N, model.nv, device=dev))
-    pack, masses, friction, targets = pack_state(phys), t(masses), t(rng.uniform(0.1, 2.0, N)), t(qj)
+    phys = PhysState(t32(np.c_[np.zeros((N, 2)), np.full(N, 0.90)]),
+                     t32(np.tile([1.0, 0.0, 0.0, 0.0], (N, 1))), t32(qj),
+                     torch.zeros(N, model.nv, device=DEVICE))
+    pack, masses, friction, targets = pack_state(phys), t32(masses), t32(rng.uniform(0.1, 2.0, N)), t32(qj)
     for _ in range(30):
-        pack, _ = kernel.plain(pack, masses, friction, targets, 10, True, True)
+        pack, diag = kernel(pack, masses, friction, targets, 10, True, True, planes=planes)
     torch.cuda.synchronize()
+    weight = model.total_mass * 9.81
+    if float(diag.foot_forces[..., 2].sum(1).median()) < 0.8 * weight:
+        raise AssertionError("the settled robots do not stand on their feet")
     return pack, masses, friction, targets
 
 
-def compare(kernel, model, inputs, decimation, freeze, freeze_prep):
-    """Kernel vs plain version on the same inputs."""
+def pressed(inputs):
+    pack = inputs[0].clone()
+    pack[2] -= 1e-3                  # every sole corner 1 mm in: one active contact set
+    return (pack,) + tuple(inputs[1:])
+
+
+def random_extras(model, kp, kd, seed=1):
+    """Per-env gains (N, 3 nj) and bodies (N, 9 nb) in the ranges of the
+    reference's domain randomization, and the motor offsets (N, nj)."""
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.ops.physics_kernel import pack_body
+
+    rng = np.random.default_rng(seed)
+    nj, nb = model.nj, model.nb
+    strength = np.repeat(rng.uniform(0.8, 1.2, (N, 1)), nj, axis=1)
+    gains = np.concatenate([kp * rng.uniform(0.8, 1.2, (N, nj)),
+                            kd * rng.uniform(0.8, 1.2, (N, nj)), strength], axis=1)
+    com = np.tile(model.com, (N, 1, 1))
+    com[:, 0] += np.c_[rng.uniform(-0.07, 0.03, N), rng.uniform(-0.03, 0.03, (N, 2))]
+    f6 = rng.uniform(0.8, 1.2, (N, nb, 6))
+    inertia = np.tile(model.inertia, (N, 1, 1, 1)) * f6[..., (0, 1, 2, 1, 3, 4, 2, 4, 5)].reshape(
+        N, nb, 3, 3)
+    body = pack_body(t32(com), t32(inertia)).contiguous()
+    return t32(gains), body, t32(rng.uniform(-0.035, 0.035, (N, nj)))
+
+
+def ramp_planes(model):
+    import numpy as np
+
+    from humanoid_tpu_torch.ops.physics_kernel import n_points
+
+    return t32(np.tile([0.0, *RAMP], (N, n_points(model))))
+
+
+def random_near_ground(model, seed=7):
+    """A random near-ground batch (the reference's kernel-vs-XLA PGS test
+    layout) over random per-point planes with |slope| <= 0.3. Returns
+    (pack, targets, planes)."""
+    import numpy as np
+
+    from humanoid_tpu_torch.ops.physics_kernel import n_points, pack_state
+    from humanoid_tpu_torch.physics.engine import PhysState
+
+    rng = np.random.default_rng(seed)
+    phys = PhysState(t32(np.c_[rng.uniform(-0.1, 0.1, (N, 2)), rng.uniform(0.82, 0.95, N)]),
+                     t32(np.tile([1.0, 0.0, 0.0, 0.0], (N, 1))),
+                     t32(rng.uniform(-0.2, 0.2, (N, model.nj))),
+                     t32(rng.uniform(-0.5, 0.5, (N, model.nv))))
+    P = n_points(model)
+    planes = np.concatenate([rng.uniform(-0.03, 0.03, (N, P, 1)),
+                             rng.uniform(-0.2, 0.2, (N, P, 2))], axis=2).reshape(N, -1)
+    return pack_state(phys), t32(rng.uniform(-0.3, 0.3, (N, model.nj))), t32(planes)
+
+
+def compare(kernel, model, inputs, decimation, freeze, freeze_prep, drop=None, **extras):
+    """Kernel vs plain version on the same inputs; with `drop`, the plain
+    version runs without that optional input (a control: the bounds must
+    then fail)."""
     import torch
 
     pack, masses, friction, targets = inputs
-    a, da = kernel(pack, masses, friction, targets, decimation, freeze, freeze_prep)
-    b, db = kernel.plain(pack, masses, friction, targets, decimation, freeze, freeze_prep)
+    a, da = kernel(pack, masses, friction, targets, decimation, freeze, freeze_prep, **extras)
+    b, db = kernel.plain(pack, masses, friction, targets, decimation, freeze, freeze_prep,
+                         **{k: v for k, v in extras.items() if k != drop})
     torch.cuda.synchronize()
     nj = model.nj
     du = (a[7 + nj:] - b[7 + nj:]).abs().amax(dim=0)                  # per env
@@ -100,10 +181,85 @@ def compare(kernel, model, inputs, decimation, freeze, freeze_prep):
     }
 
 
+def within(r):
+    return (r["finite"] and r["max_du"] < TOL_DU and r["max_base_pos"] < TOL_POS
+            and r["max_foot_force_over_weight"] < TOL_FOOT_FRACTION)
+
+
 def check_within(name, r):
-    if not (r["finite"] and r["max_du"] < TOL_DU and r["max_base_pos"] < TOL_POS
-            and r["max_foot_force_over_weight"] < TOL_FOOT_FRACTION):
+    if not within(r):
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {r}")
+
+
+def sampler_points(env, seed=3):
+    """4096 envs spread over the curriculum cells, each with a random yaw:
+    the 187 scan points of the yaw-rotated grid and the 9 contact points
+    of the default stance, jittered by 5 cm."""
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.physics.spatial import quat_apply_yaw
+
+    rng = np.random.default_rng(seed)
+    w = env.terrain_world
+    base = np.c_[rng.uniform(0.0, w.num_rows * w.terrain_length, N),
+                 rng.uniform(0.0, w.num_cols * w.terrain_length, N), np.full(N, 0.9)]
+    yaw = rng.uniform(-math.pi, math.pi, N)
+    quat = t32(np.c_[np.cos(yaw / 2), np.zeros((N, 2)), np.sin(yaw / 2)])
+    base = t32(base)
+    scan = (quat_apply_yaw(quat[:, None], env.height_points[None]) + base[:, None])[..., 0:2]
+    c, s = torch.cos(t32(yaw))[:, None], torch.sin(t32(yaw))[:, None]
+    d = env._default_contact_xy[None]
+    con = base[:, None, 0:2] + torch.stack([c * d[..., 0] - s * d[..., 1],
+                                            s * d[..., 0] + c * d[..., 1]], dim=-1)
+    con = con + t32(rng.uniform(-0.05, 0.05, tuple(con.shape)))
+    return scan.contiguous(), con.contiguous()
+
+
+def train_phase(train, task, log_name):
+    """Train `task` at 4096 envs for ITERATIONS iterations; the wrappers are
+    new, so their counts start at 0. Returns (runner, carry, rows, peak)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+
+    def log_fn(it, m, fps):
+        row = {"it": it, "env_steps_per_s": fps, "rollout_s": m.rollout_s,
+               "update_s": m.update_s, "mean_reward": float(m.mean_step_reward),
+               "value_loss": float(m.update.value_loss),
+               "surrogate_loss": float(m.update.surrogate_loss),
+               "kl": float(m.update.kl), "kernel_launches": m.kernel_launches,
+               "sampler_launches": m.sampler_launches}
+        emit(log_name, task=task, **row)
+        rows.append(row)
+
+    runner, carry = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
+                                str(ITERATIONS), "--device", DEVICE], log_fn=log_fn)
+    return runner, carry, rows, torch.cuda.max_memory_allocated()
+
+
+def check_training(task, runner, carry, rows, env_cfg, sampler):
+    import numpy as np
+    import torch
+
+    losses_finite = all(np.isfinite([r["value_loss"], r["surrogate_loss"], r["kl"]]).all()
+                        for r in rows)
+    params_finite = all(bool(torch.isfinite(p).all()) for p in runner.net.parameters())
+    obs_finite = bool(torch.isfinite(carry.obs).all() and torch.isfinite(carry.critic_obs).all())
+    shapes = [tuple(carry.obs.shape), tuple(carry.critic_obs.shape)]
+    if len(rows) != ITERATIONS or any(r["kernel_launches"] != STEPS_PER_ITERATION for r in rows):
+        raise AssertionError(f"{task}: expected {STEPS_PER_ITERATION} control-step launches "
+                             f"per iteration: {rows}")
+    if sampler and any(r["sampler_launches"] != STEPS_PER_ITERATION for r in rows):
+        raise AssertionError(f"{task}: expected {STEPS_PER_ITERATION} sampler launches per "
+                             f"iteration: {rows}")
+    if not (losses_finite and params_finite and obs_finite):
+        raise AssertionError(f"{task}: training produced non-finite numbers")
+    if shapes != [(N, env_cfg.env.num_observations), (N, env_cfg.env.num_privileged_obs)]:
+        raise AssertionError(f"{task}: unexpected observation shapes {shapes}")
+    return {"losses_finite": losses_finite, "params_finite": params_finite,
+            "obs_finite": obs_finite, "obs_shapes": shapes}
 
 
 def main():
@@ -114,8 +270,11 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from humanoid_tpu_torch.ops.build import build_all
     from humanoid_tpu_torch.ops.physics_kernel import (ControlStepKernel, launch_bytes,
                                                       operations_per_env)
+    from humanoid_tpu_torch.ops.terrain_sampler import (TerrainSampler, sample_bytes,
+                                                        sample_plain, touched_cells)
     from humanoid_tpu_torch.scripts import train
     from humanoid_tpu_torch.utils import registry
 
@@ -126,29 +285,30 @@ def main():
     emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # ---- 1. build ----
-    env_cfg, train_cfg = registry.get_cfgs("humanoid_ppo")
+    # ---- 1. build: one nvcc per source, started together ----
+    sources = ("control_step.cu", "terrain_sampler.cu")
+    t0 = time.perf_counter()
+    built = build_all(sources)
+    wall = time.perf_counter() - t0
+    for src in sources:
+        emit("build", source=f"humanoid_tpu_torch/csrc/{src}", nvcc_s=built[src].seconds,
+             all_builds_wall_s=wall, ptxas=list(built[src].ptxas))
+
+    # ---- 2./3. control step vs plain on humanoid_ppo's instances ----
+    env_cfg, _ = registry.get_cfgs("humanoid_ppo")
     env, _, _ = registry.make_env("humanoid_ppo", device=DEVICE)
     model, kernel = env.model, env.physics
     # a second wrapper of the same kernel for the comparisons and timings,
-    # so that the training run's launch count is the main path's alone
+    # so that the training runs' launch counts are the main paths' alone
     probe = ControlStepKernel(model, *kernel.gains, kernel.contact_params, kernel.pgs_params,
                               kernel.dt)
-    t0 = time.perf_counter()
-    probe.build()
-    info = probe.build_info
-    emit("build", source="humanoid_tpu_torch/csrc/control_step.cu", nvcc_s=info.seconds,
-         load_s=time.perf_counter() - t0, ptxas=list(info.ptxas))
-
-    # ---- 2./3. kernel instances vs plain, 4096 envs on loaded feet ----
     default_pos = np.asarray(env_cfg.init_state.default_joint_angles)
-    settled = feet_loaded_state(probe, model, default_pos)
-    pressed = (settled[0].clone(),) + settled[1:]
-    pressed[0][2] -= 1e-3            # every sole corner 1 mm in: one active contact set
+    settled = settle(probe, model, default_pos)
+    on_flat = pressed(settled)
     sweeps = env_cfg.sim.pgs_iterations
     results = {}
     for name, args in (("exact", (1, False, False)), ("shipping", (10, True, True))):
-        on_pressed = compare(probe, model, pressed, *args)
+        on_pressed = compare(probe, model, on_flat, *args)
         on_settled = compare(probe, model, settled, *args)
         emit(f"{name}_vs_plain", decimation=args[0], freeze=args[1], freeze_prep=args[2],
              sweeps=sweeps, envs=N, tolerance={"du": TOL_DU, "base_pos": TOL_POS,
@@ -159,84 +319,165 @@ def main():
             raise AssertionError(f"{name} (settled): median per-env |du| too large: {on_settled}")
         results[name] = on_pressed
 
-    # ---- 4. train humanoid_ppo, 3 iterations at 4096 envs ----
-    del env, kernel
-    torch.cuda.reset_peak_memory_stats()
-    iters = []
+    # ---- 3b. the control step's gains, body and planes inputs vs plain ----
+    gains, body, offsets = random_extras(model, *kernel.gains[:2])
+    planes = ramp_planes(model)
+    on_ramp = settle(probe, model, default_pos, planes=planes)
+    ramp_pressed = pressed(on_ramp)
+    rng_pack, rng_targets, rng_planes = random_near_ground(model)
+    rng_inputs = (rng_pack, settled[1], settled[2], rng_targets)
+    with_offsets = lambda x: x[:3] + ((x[3] + offsets).contiguous(),)  # noqa: E731
+    extras = {
+        "gains_body_flat_pressed": compare(probe, model, with_offsets(on_flat), 10, True, True,
+                                           gains=gains, body=body),
+        "all_ramp_pressed": compare(probe, model, with_offsets(ramp_pressed), 10, True, True,
+                                    gains=gains, body=body, planes=planes),
+        "all_random_planes_exact": compare(probe, model, rng_inputs, 1, False, False,
+                                           gains=gains, body=body, planes=rng_planes),
+    }
+    emit("extras_vs_plain", envs=N, ramp_gradient=RAMP,
+         tolerance={"du": TOL_DU, "base_pos": TOL_POS,
+                    "foot_force_over_weight": TOL_FOOT_FRACTION}, **extras)
+    for name, r in extras.items():
+        check_within(name, r)
+    results["extras"] = extras["all_ramp_pressed"]
+    # controls: the plain version without one input must fall outside the
+    # bounds, or they could not tell a kernel that ignores that input
+    controls = {f"plain_without_{d}": compare(probe, model, with_offsets(ramp_pressed), 10, True,
+                                              True, drop=d, gains=gains, body=body, planes=planes)
+                for d in ("gains", "body", "planes")}
+    emit("extras_controls", envs=N, **controls)
+    for name, r in controls.items():
+        if within(r):
+            raise AssertionError(f"{name}: the bounds do not see the missing input: {r}")
 
-    def log_fn(it, m, fps):
-        row = {"it": it, "env_steps_per_s": fps, "rollout_s": m.rollout_s,
-               "update_s": m.update_s, "mean_reward": float(m.mean_step_reward),
-               "value_loss": float(m.update.value_loss),
-               "surrogate_loss": float(m.update.surrogate_loss),
-               "kl": float(m.update.kl), "kernel_launches": m.kernel_launches}
-        emit("train_iteration", **row)
-        iters.append(row)
+    # ---- 3c. the sampler vs plain on the full humanoid_ppo_terrain world ----
+    tenv, tcfg, _ = registry.make_env("humanoid_ppo_terrain", device=DEVICE)
+    world = tenv.terrain_world
+    sprobe = TerrainSampler(world.height, tcfg.terrain.vertical_scale, world.horizontal_scale,
+                            world.border, device=DEVICE)
+    scan_xy, con_xy = sampler_points(tenv)
+    k_scan, k_corners = sprobe(scan_xy, con_xy)
+    p_scan, p_corners = sprobe.plain(scan_xy, con_xy)
+    torch.cuda.synchronize()
+    errs = {"scan": (k_scan - p_scan).abs().max().item()}
+    for name, a, b in zip(("h00", "h10", "h01", "h11", "tx", "ty"), k_corners, p_corners):
+        errs[name] = (a - b).abs().max().item()
+    sampler_err = max(errs.values())
+    emit("sampler_vs_plain", envs=N, raster=list(sprobe.raster.shape),
+         scan_points=scan_xy.shape[1], contact_points=con_xy.shape[1], max_abs_err=errs,
+         tolerance_m=TOL_SAMPLER_M, scan_range_m=[p_scan.min().item(), p_scan.max().item()],
+         finite=bool(torch.isfinite(k_scan).all()))
+    if not sampler_err <= TOL_SAMPLER_M or not bool(torch.isfinite(k_scan).all()):
+        raise AssertionError(f"sampler disagrees with its plain version: {errs}")
+    del env, kernel, tenv
 
-    runner, carry = train.main(["--task", "humanoid_ppo", "--num-envs", str(N),
-                                "--max-iterations", str(ITERATIONS), "--device", DEVICE],
-                               log_fn=log_fn)
-    launches = runner.env.physics.launches
-    peak_train = torch.cuda.max_memory_allocated()
-    losses_finite = all(np.isfinite([r["value_loss"], r["surrogate_loss"], r["kl"]]).all()
-                        for r in iters)
-    params_finite = all(bool(torch.isfinite(p).all()) for p in runner.net.parameters())
-    shapes = [tuple(carry.obs.shape), tuple(carry.critic_obs.shape)]
-    emit("train", iterations=len(iters), kernel_launches=launches,
-         peak_bytes=peak_train, losses_finite=losses_finite, params_finite=params_finite,
-         obs_shapes=shapes, obs_finite=bool(torch.isfinite(carry.obs).all()))
-    if len(iters) != ITERATIONS or any(r["kernel_launches"] != STEPS_PER_ITERATION for r in iters):
-        raise AssertionError(f"expected {STEPS_PER_ITERATION} kernel launches per iteration: {iters}")
-    if not (losses_finite and params_finite and bool(torch.isfinite(carry.obs).all())):
-        raise AssertionError("training produced non-finite numbers")
-    if shapes != [(N, env_cfg.env.num_observations), (N, env_cfg.env.num_privileged_obs)]:
-        raise AssertionError(f"unexpected observation shapes {shapes}")
+    # ---- 4. the main paths: humanoid_ppo, then humanoid_ppo_terrain ----
+    launches, summaries = {}, {}
+    for task, sampler in (("humanoid_ppo", False), ("humanoid_ppo_terrain", True)):
+        runner, carry, rows, peak = train_phase(train, task, "train_iteration")
+        cfg, _ = registry.get_cfgs(task)
+        checks = check_training(task, runner, carry, rows, cfg, sampler)
+        launches[task] = {"control_step_kernel": runner.env.physics.launches,
+                          "terrain_sampler_kernel": (runner.env.sampler.launches
+                                                     if runner.env.sampler is not None else 0)}
+        steady = rows[1:] if len(rows) > 1 else rows
+        summaries[task] = {
+            "iterations": len(rows), "launches": launches[task], "peak_bytes": peak,
+            "steady_env_steps_per_s": sum(r["env_steps_per_s"] for r in steady) / len(steady),
+            "steady_rollout_s": sum(r["rollout_s"] for r in steady) / len(steady),
+            "steady_update_s": sum(r["update_s"] for r in steady) / len(steady),
+            "mean_terrain_level": float(carry.env_state.terrain_levels.float().mean()),
+            **checks,
+        }
+        emit("train", task=task, **summaries[task])
+        if launches[task]["control_step_kernel"] == 0 or (
+                sampler and launches[task]["terrain_sampler_kernel"] == 0):
+            raise AssertionError(f"{task}: a kernel of the path was not launched: {launches}")
+        del runner, carry
 
-    # ---- 5. kernel time against its bound ----
-    pack, masses, friction, targets = settled
+    # ---- 5. kernel times against their bounds ----
     timing = {}
-    for name, args in (("exact", (1, False, False)), ("shipping", (10, True, True))):
+    pack, masses, friction, targets = settled
+    rpack, rmasses, rfriction, rtargets = with_offsets(on_ramp)
+    instances = {
+        "exact": ((pack, masses, friction, targets), (1, False, False), {}),
+        "shipping": ((pack, masses, friction, targets), (10, True, True), {}),
+        "extras": ((rpack, rmasses, rfriction, rtargets), (10, True, True),
+                   {"gains": gains, "body": body, "planes": planes}),
+    }
+    for name, (inputs, args, kw) in instances.items():
         def run_kernel():
-            probe(pack, masses, friction, targets, *args)
+            probe(*inputs, *args, **kw)
 
         def run_plain():
-            probe.plain(pack, masses, friction, targets, *args)
+            probe.plain(*inputs, *args, **kw)
 
         for _ in range(3):
             run_kernel()
         ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
         run_plain()
         plain_ms = cuda_ms(run_plain, 3)
-        ops = operations_per_env(model, args[0], args[1], args[2], sweeps) * N
-        nbytes = launch_bytes(model, N)
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                        "operations": ops, "bytes": nbytes}
+        flags = {k: k in kw for k in ("gains", "body", "planes")}
+        ops = operations_per_env(model, args[0], args[1], args[2], sweeps, **flags) * N
+        timing[name] = {"ms": ms, "plain_ms": plain_ms,
+                        **bound(ops, launch_bytes(model, N, **flags))}
         emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
-    emit("memory", train_peak_bytes=peak_train, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    def run_sampler():
+        sprobe(scan_xy, con_xy)
+
+    def run_sampler_plain():
+        sample_plain(sprobe.raster, sprobe.vs, sprobe.hs, sprobe.border, scan_xy, con_xy)
+
+    for _ in range(3):
+        run_sampler()
+    s_ms = cuda_ms(run_sampler, TIMED_SAMPLES)
+    run_sampler_plain()
+    s_plain_ms = cuda_ms(run_sampler_plain, 10)
+    n_scan, n_con = scan_xy.shape[0] * scan_xy.shape[1], con_xy.shape[0] * con_xy.shape[1]
+    cells = touched_cells(sprobe.raster, sprobe.hs, sprobe.border, scan_xy, con_xy)
+    timing["sampler"] = {"ms": s_ms, "plain_ms": s_plain_ms, "raster_cells_read": cells,
+                         **bound(SAMPLER_OPS_PER_SCAN * n_scan + SAMPLER_OPS_PER_CONTACT * n_con,
+                                 sample_bytes(n_scan, n_con, cells))}
+    emit("sampler_time", launches_timed=TIMED_SAMPLES, **timing["sampler"])
+    emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated())
 
     # ---- 6. the table and the last line ----
     print(smi, flush=True)
-    ship, exact = timing["shipping"], timing["exact"]
-    print(json.dumps({"kernels": [{
-        "name": "control_step_kernel",
-        "route": "cuda",
-        "source": "humanoid_tpu_torch/csrc/control_step.cu",
-        "replaces": "humanoid_tpu/ops/physics_kernel.py:841",
-        "launches": launches,
-        "max_abs_err": results["shipping"]["max_abs_err"],
-        "ms": ship["ms"], "plain_ms": ship["plain_ms"], "bound_ms": ship["bound_ms"],
-        "bound_by": ship["bound_by"], "library_ms": None,
-        "instance": f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps}",
-        "exact_instance": {
-            "replaces": "humanoid_tpu/ops/physics_kernel.py:808",
-            "instance": f"decimation=1 freeze=0 freeze_prep=0 sweeps={sweeps}",
-            "max_abs_err": results["exact"]["max_abs_err"], "ms": exact["ms"],
-            "plain_ms": exact["plain_ms"], "bound_ms": exact["bound_ms"],
-            "bound_by": exact["bound_by"], "library_ms": None,
+
+    def row(name, result, t, **more):
+        return {"max_abs_err": result, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+                "instance": name, **more}
+
+    cs_launches = {task: v["control_step_kernel"] for task, v in launches.items()}
+    ship = timing["shipping"]
+    print(json.dumps({"kernels": [
+        {
+            "name": "control_step_kernel", "route": "cuda",
+            "source": "humanoid_tpu_torch/csrc/control_step.cu",
+            "replaces": "humanoid_tpu/ops/physics_kernel.py:841",
+            "launches": sum(cs_launches.values()), "launches_by_path": cs_launches,
+            **row(f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps}",
+                  results["shipping"]["max_abs_err"], ship),
+            "exact_instance": row(f"decimation=1 freeze=0 freeze_prep=0 sweeps={sweeps}",
+                                  results["exact"]["max_abs_err"], timing["exact"],
+                                  replaces="humanoid_tpu/ops/physics_kernel.py:808"),
+            "extras_instance": row(
+                f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps} gains body planes",
+                results["extras"]["max_abs_err"], timing["extras"],
+                launches=cs_launches["humanoid_ppo_terrain"]),
         },
-    }]}), flush=True)
+        {
+            "name": "terrain_sampler_kernel", "route": "cuda",
+            "source": "humanoid_tpu_torch/csrc/terrain_sampler.cu",
+            "replaces": "humanoid_tpu/ops/terrain_kernel.py:114",
+            "launches": launches["humanoid_ppo_terrain"]["terrain_sampler_kernel"],
+            "launches_by_path": {t: v["terrain_sampler_kernel"] for t, v in launches.items()},
+            **row("187 scan + 9 contact points per env", sampler_err, timing["sampler"]),
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

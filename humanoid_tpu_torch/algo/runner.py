@@ -39,6 +39,7 @@ class IterationMetrics(NamedTuple):
     rollout_s: float               # host seconds, synchronized
     update_s: float
     kernel_launches: int           # control-step kernel launches this iteration
+    sampler_launches: int          # heightfield sampler launches this iteration
 
 
 class OnPolicyRunner:
@@ -65,6 +66,9 @@ class OnPolicyRunner:
         self.vel_slice = (lo, lo + 3)
         self.iteration = 0
 
+    def _sampler_launches(self) -> int:
+        return self.env.sampler.launches if self.env.sampler is not None else 0
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -90,6 +94,7 @@ class OnPolicyRunner:
         dev = self.device
         t0 = time.perf_counter()
         launches0 = env.physics.launches
+        sampler0 = self._sampler_launches()
 
         es = carry.env_state
         ratio = env.cfg.rewards.course_ratio
@@ -156,6 +161,7 @@ class OnPolicyRunner:
             mean_action_std=torch.clamp(net.std.detach(), min=MIN_STD).mean(),
             rew_terms_mean=rew_terms / T, rollout_s=t1 - t0, update_s=t2 - t1,
             kernel_launches=env.physics.launches - launches0,
+            sampler_launches=self._sampler_launches() - sampler0,
         )
         return IterationCarry(env_state=es, obs=obs, critic_obs=cobs), metrics
 

@@ -1,13 +1,27 @@
 // One 100 Hz control step of the humanoid physics as one CUDA kernel.
 //
 // Replaces the TPU kernel humanoid_tpu/ops/physics_kernel.py::_control_kernel
-// (built by build_control_fn) with the shipping switches: block-PGS foot
-// contact from a cold start, penalty termination spheres, flat ground, no
-// per-env gains or body randomization. `decimation`, `freeze` (factor the
-// mass matrix once, from the entry configuration), `freeze_prep` (build the
-// contact frames, Jacobian rows and Delassus operator once, with the frozen
-// factor) and the sweep count are runtime arguments: decimation=1,
+// (built by build_control_fn) on its PGS path: block-PGS foot contact from a
+// cold start and penalty termination spheres. `decimation`, `freeze` (factor
+// the mass matrix once, from the entry configuration), `freeze_prep` (build
+// the contact frames, Jacobian rows and Delassus operator once, with the
+// frozen factor) and the sweep count are runtime arguments: decimation=1,
 // freeze=0 is the exact substep of _substep_kernel.
+//
+// Three optional per-env inputs, each (N, rows) env-major and a null
+// pointer when absent, with the reference's row order (_extra_rows):
+//   gains  (3 nj): kp_eff, kd_eff, strength per joint; they replace the
+//          table's kp/kd in the PD law, (kp (q* - q) - kd qd) * strength,
+//          still clipped at tau_lim;
+//   body   (9 nb): COM xyz per body, then inertia xx xy xz yy yz zz per
+//          body (body frame); they replace the table's in the spatial
+//          inertias, so in the CRBA, the frozen factor and the bias;
+//   planes (3 P):  [c0, gx, gy] per contact point, sole corners then
+//          termination spheres: the ground height c0 + gx x + gy y, held for
+//          the control step. It sets the gap along the plane normal and the
+//          normal-aligned frame of every PGS row, and the normal of the
+//          sphere penalty force. Without it the ground is the plane z = 0.
+// The rows are read from global memory where they are used.
 //
 // Each substep: PD torque, forward kinematics, joint screws, spatial
 // inertias, the velocity/bias recursion, the CRBA mass matrix and its
@@ -23,7 +37,8 @@
 // Per-thread arrays are sized at compile time for nj <= 18.
 //
 // What bounds it: the work is a few hundred thousand dependent fp32
-// operations per env and control step against ~740 bytes moved per env, so
+// operations per env and control step against ~740 bytes moved per env
+// (~1,700 with the gains, body and planes inputs), so
 // the operation count sets the bound. At the shipping 4096 envs one thread
 // per env fills about 1.5% of the card's resident thread slots (132 SMs x
 // 2048), and the per-thread arrays live in local memory: the kernel is
@@ -87,7 +102,7 @@ struct Work {
   float v[MAX_NB][6], a[MAX_NB][6], g[MAX_NB][6];
   float C[MAX_NV];
   float L[TRI(MAX_NV)], invd[MAX_NV];     // packed lower Cholesky factor
-  float J[MAX_R][MAX_NV];                 // contact rows: n = z, t1 = x, t2 = y
+  float J[MAX_R][MAX_NV];                 // contact rows n, t1, t2; cols 3..5 hold the frame
   float A[TRI(MAX_R)];                    // packed lower Delassus operator
   float tmp[MAX_NV], rhs[MAX_NV], ufree[MAX_NV], lam[MAX_R], vf[MAX_R];
   float phi[MAX_FPTS];
@@ -144,7 +159,7 @@ HD inline void inertia_apply(const float I[10], const float s[6], float y[6]) {
 
 // Forward kinematics, joint screws and compact spatial inertias.
 HD void kinematics(const ModelTable& m, const float bp[3], const float bq[4],
-                   const float* qj, const float* mass, Work& W) {
+                   const float* qj, const float* mass, const float* body, Work& W) {
   const int nj = m.nj;
   for (int i = 0; i < 3; ++i) W.pos[0][i] = bp[i];
   for (int i = 0; i < 4; ++i) W.quat[0][i] = bq[i];
@@ -170,8 +185,8 @@ HD void kinematics(const ModelTable& m, const float bp[3], const float bq[4],
   for (int b = 0; b <= nj; ++b) {
     float R[3][3], r[3], RI[3][3], Iw[3][3];
     qmat(W.quat[b], R);
-    const float* c = m.com[b];
-    const float* i6 = m.inertia[b];
+    const float* c = body ? body + 3 * b : m.com[b];
+    const float* i6 = body ? body + 3 * (nj + 1) + 6 * b : m.inertia[b];
     const float Ib[3][3] = {{i6[0], i6[1], i6[2]}, {i6[1], i6[3], i6[4]}, {i6[2], i6[4], i6[5]}};
     for (int i = 0; i < 3; ++i)
       r[i] = W.pos[b][i] + R[i][0] * c[0] + R[i][1] * c[1] + R[i][2] * c[2] - A[i];
@@ -311,20 +326,50 @@ HD inline void point_world(const Work& W, int b, const float off[3],
   for (int i = 0; i < 3; ++i) p[i] = W.pos[b][i] + o[i];
 }
 
-// Contact rows (frames n = z, t1 = x, t2 = y on the flat plane) and the
-// Delassus operator A = J M^-1 J^T, from the current kinematics and factor.
-HD void pgs_prepare(const ModelTable& m, Work& W) {
+// Unit normal of the plane [c0, gx, gy] and 1/|(-gx, -gy, 1)|.
+HD inline float plane_normal(const float* pl, float n[3]) {
+  const float inv_l = rsqrtf(1.0f + pl[1] * pl[1] + pl[2] * pl[2]);
+  n[0] = -pl[1] * inv_l;
+  n[1] = -pl[2] * inv_l;
+  n[2] = inv_l;
+  return inv_l;
+}
+
+// Gap of world point p along the normal of plane pl (z on the flat plane).
+HD inline float plane_gap(const float* pl, const float p[3]) {
+  if (!pl) return p[2];
+  float n[3];
+  const float inv_l = plane_normal(pl, n);
+  return (p[2] - (pl[0] + pl[1] * p[0] + pl[2] * p[1])) * inv_l;
+}
+
+// Contact rows and the Delassus operator A = J M^-1 J^T, from the current
+// kinematics and factor. Frames: n = z, t1 = x, t2 = y on the flat plane;
+// on a plane, its normal and the branchless tangent basis of the reference
+// kernel (t1 = n x (x or y axis), normalized; t2 = n x t1).
+HD void pgs_prepare(const ModelTable& m, const float* planes, Work& W) {
   const int nj = m.nj, nv = nj + 6, R = 3 * m.n_fpts;
-  const int axis_of_row[3] = {2, 0, 1};
   for (int c = 0; c < m.n_fpts; ++c) {
     const int b = m.fpt_body[c];
     const unsigned int anc = m.anc[b];
-    float p[3], rel[3];
+    float p[3], rel[3], fr[3][3];
     point_world(W, b, m.fpt_off[c], p);
     for (int i = 0; i < 3; ++i) rel[i] = p[i] - W.pos[0][i];
+    if (planes) {
+      plane_normal(planes + 3 * c, fr[0]);
+      const float ux = fabsf(fr[0][0]) < 0.9f ? 1.0f : 0.0f;
+      const float a[3] = {ux, 1.0f - ux, 0.0f};
+      cross3(fr[0], a, fr[1]);
+      const float it1 = rsqrtf(dot3(fr[1], fr[1]) + 1e-12f);
+      for (int i = 0; i < 3; ++i) fr[1][i] *= it1;
+      cross3(fr[0], fr[1], fr[2]);
+    } else {
+      for (int d = 0; d < 3; ++d)
+        for (int i = 0; i < 3; ++i) fr[d][i] = 0.0f;
+      fr[0][2] = fr[1][0] = fr[2][1] = 1.0f;
+    }
     for (int d = 0; d < 3; ++d) {
-      float e[3] = {0.0f, 0.0f, 0.0f};
-      e[axis_of_row[d]] = 1.0f;
+      const float* e = fr[d];
       float* row = W.J[3 * c + d];
       cross3(rel, e, row);
       for (int i = 0; i < 3; ++i) row[3 + i] = e[i];
@@ -355,16 +400,27 @@ HD inline float amat(const Work& W, int i, int j) {
 
 // One substep from the thread's state; `prep` rebuilds the contact rows and
 // Delassus operator, `factor` the mass-matrix factor.
+// This env's optional inputs (see the top of the file), or null pointers.
+struct EnvExtras {
+  const float* gains;
+  const float* body;
+  const float* planes;
+};
+
 HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
-                const float* mass, float mu, const float* targets, bool factor,
-                bool prep, int iterations, Work& W) {
+                const float* mass, float mu, const float* targets, const EnvExtras& x,
+                bool factor, bool prep, int iterations, Work& W) {
   const int nj = m.nj, nv = nj + 6, K = m.n_fpts, R = 3 * K;
   const float dt = m.dt;
   for (int k = 0; k < nj; ++k) {
-    const float t = m.kp[k] * (targets[k] - qj[k]) - m.kd[k] * u[6 + k];
+    float t;
+    if (x.gains)
+      t = (x.gains[k] * (targets[k] - qj[k]) - x.gains[nj + k] * u[6 + k]) * x.gains[2 * nj + k];
+    else
+      t = m.kp[k] * (targets[k] - qj[k]) - m.kd[k] * u[6 + k];
     W.tau[k] = fminf(fmaxf(t, -m.tau_lim[k]), m.tau_lim[k]);
   }
-  kinematics(m, bp, bq, qj, mass, W);
+  kinematics(m, bp, bq, qj, mass, x.body, W);
   vel_bias(m, u, W);
   if (factor) crba_chol(m, W);
 
@@ -379,11 +435,27 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
     for (int i = 0; i < 3; ++i) rel[i] = p[i] - A0[i];
     cross3(W.v[b], rel, wr);
     for (int i = 0; i < 3; ++i) vl[i] = W.v[b][3 + i] + wr[i];
-    const float pen = p[2] < 0.0f ? 1.0f : 0.0f;
-    const float fn = fmaxf(0.0f, -m.kn * p[2] - m.cn * vl[2]) * pen;
-    const float speed = sqrtf(vl[0] * vl[0] + vl[1] * vl[1] + m.v_reg * m.v_reg);
-    const float scale = mu * fn / speed;
-    f[0] = -scale * vl[0]; f[1] = -scale * vl[1]; f[2] = fn;
+    float fn;
+    if (x.planes) {
+      // normal-aligned penalty against the sphere's plane
+      const float* pl = x.planes + 3 * (K + s);
+      float nrm[3], vt[3];
+      const float inv_l = plane_normal(pl, nrm);
+      const float phi = (p[2] - (pl[0] + pl[1] * p[0] + pl[2] * p[1])) * inv_l;
+      const float pen = phi < 0.0f ? 1.0f : 0.0f;
+      const float vn = dot3(vl, nrm);
+      fn = fmaxf(0.0f, -m.kn * phi - m.cn * vn) * pen;
+      for (int i = 0; i < 3; ++i) vt[i] = vl[i] - vn * nrm[i];
+      const float speed = sqrtf(dot3(vt, vt) + m.v_reg * m.v_reg);
+      const float scale = mu * fn / speed;
+      for (int i = 0; i < 3; ++i) f[i] = fn * nrm[i] - scale * vt[i];
+    } else {
+      const float pen = p[2] < 0.0f ? 1.0f : 0.0f;
+      fn = fmaxf(0.0f, -m.kn * p[2] - m.cn * vl[2]) * pen;
+      const float speed = sqrtf(vl[0] * vl[0] + vl[1] * vl[1] + m.v_reg * m.v_reg);
+      const float scale = mu * fn / speed;
+      f[0] = -scale * vl[0]; f[1] = -scale * vl[1]; f[2] = fn;
+    }
     W.term_f[s] = fn;
     cross3(rel, f, nm);
     for (int i = 0; i < 3; ++i) { W.rhs[i] += nm[i]; W.rhs[3 + i] += f[i]; }
@@ -396,13 +468,13 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
   chol_solve(W, nv, W.rhs, W.tmp);
   for (int i = 0; i < nv; ++i) W.ufree[i] = u[i] + dt * W.tmp[i];
 
-  if (prep) pgs_prepare(m, W);
+  if (prep) pgs_prepare(m, x.planes, W);
 
   // fresh penetrations against the (possibly frozen) frames
   for (int c = 0; c < K; ++c) {
     float p[3];
     point_world(W, m.fpt_body[c], m.fpt_off[c], p);
-    W.phi[c] = p[2];
+    W.phi[c] = plane_gap(x.planes ? x.planes + 3 * c : nullptr, p);
   }
   for (int r = 0; r < R; ++r) {
     float s = 0.0f;
@@ -452,11 +524,18 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
   chol_solve(W, nv, W.rhs, W.tmp);
   for (int f = 0; f < m.n_feet; ++f)
     for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < K; ++k) {   // world force: frame^T lam / dt
     float* ff = W.foot_f[m.fpt_foot[k]];
-    ff[0] += W.lam[3 * k + 1] / dt;
-    ff[1] += W.lam[3 * k + 2] / dt;
-    ff[2] += W.lam[3 * k] / dt;
+    const float* lam = W.lam + 3 * k;
+    if (x.planes) {
+      for (int i = 0; i < 3; ++i)
+        ff[i] += (W.J[3 * k][3 + i] * lam[0] + W.J[3 * k + 1][3 + i] * lam[1] +
+                  W.J[3 * k + 2][3 + i] * lam[2]) / dt;
+    } else {   // flat frame: n = z, t1 = x, t2 = y
+      ff[0] += lam[1] / dt;
+      ff[1] += lam[2] / dt;
+      ff[2] += lam[0] / dt;
+    }
   }
 
   // integrate: spatial -> conventional correction with the old velocity,
@@ -485,9 +564,14 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
 // forces (3 n_feet), termination forces (n_term), torques (nj).
 HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
                          const float* masses, const float* friction, const float* targets,
+                         const float* gains, const float* body, const float* planes,
                          float* state_out, float* diag, int decimation, bool freeze,
                          bool freeze_prep, int iterations, Work& W) {
   const int nj = m.nj, nb = nj + 1, nv = nj + 6;
+  const EnvExtras x{gains ? gains + static_cast<long long>(n) * 3 * nj : nullptr,
+                    body ? body + static_cast<long long>(n) * 9 * nb : nullptr,
+                    planes ? planes + static_cast<long long>(n) * 3 * (m.n_fpts + m.n_term)
+                           : nullptr};
   float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV], mass[MAX_NB], tgt[MAX_NJ];
   for (int i = 0; i < 3; ++i) bp[i] = state[i * N + n];
   for (int i = 0; i < 4; ++i) bq[i] = state[(3 + i) * N + n];
@@ -499,12 +583,12 @@ HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
 
   const bool frozen_prep = freeze && freeze_prep;
   if (freeze) {
-    kinematics(m, bp, bq, qj, mass, W);
+    kinematics(m, bp, bq, qj, mass, x.body, W);
     crba_chol(m, W);
-    if (frozen_prep) pgs_prepare(m, W);
+    if (frozen_prep) pgs_prepare(m, x.planes, W);
   }
   for (int s = 0; s < decimation; ++s)
-    substep(m, bp, bq, qj, u, mass, mu, tgt, !freeze, !frozen_prep, iterations, W);
+    substep(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, !frozen_prep, iterations, W);
 
   int row = 0;
   for (int i = 0; i < 3; ++i) state_out[(row++) * N + n] = bp[i];
@@ -531,6 +615,8 @@ HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
 __global__ void __launch_bounds__(THREADS)
 control_step_kernel(const float* __restrict__ state, const float* __restrict__ masses,
                     const float* __restrict__ friction, const float* __restrict__ targets,
+                    const float* __restrict__ gains, const float* __restrict__ body,
+                    const float* __restrict__ planes,
                     float* __restrict__ state_out, float* __restrict__ diag, int N,
                     const ModelTable* __restrict__ table, int decimation, int freeze,
                     int freeze_prep, int iterations) {
@@ -542,18 +628,19 @@ control_step_kernel(const float* __restrict__ state, const float* __restrict__ m
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   Work W;
-  control_step_env(sm, n, N, state, masses, friction, targets, state_out, diag, decimation,
-                   freeze != 0, freeze_prep != 0, iterations, W);
+  control_step_env(sm, n, N, state, masses, friction, targets, gains, body, planes, state_out,
+                   diag, decimation, freeze != 0, freeze_prep != 0, iterations, W);
 }
 
 extern "C" int control_step_launch(const float* state, const float* masses,
                                    const float* friction, const float* targets,
+                                   const float* gains, const float* body, const float* planes,
                                    float* state_out, float* diag, int N, const void* table,
                                    int decimation, int freeze, int freeze_prep, int iterations,
                                    void* stream) {
   const int blocks = (N + THREADS - 1) / THREADS;
   control_step_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      state, masses, friction, targets, state_out, diag, N,
+      state, masses, friction, targets, gains, body, planes, state_out, diag, N,
       static_cast<const ModelTable*>(table), decimation, freeze, freeze_prep, iterations);
   return static_cast<int>(cudaGetLastError());
 }

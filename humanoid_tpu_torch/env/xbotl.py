@@ -1,32 +1,42 @@
 """XBot-L walking task on batched torch tensors: port of the reference
-package's env/xbotl.py on the flat-ground PGS path without gain or body
-randomization (the shipping `humanoid_ppo` task).
+package's env/xbotl.py on its PGS path, on flat ground or a heightfield,
+with the reference's domain randomizations (friction, masses, COM and
+inertia, motor strength, offset and gains, action lag), the terrain
+curriculum and the height scan.
 
 One `step` over an explicit EnvState, batched over envs, with the masked
-auto-reset inside it. The physics goes through ControlStepKernel: the CUDA
-kernel for state on the card, its plain PyTorch version for state on the
-CPU. Randomness comes from an explicit torch.Generator on the env's device.
+auto-reset inside it. The physics goes through ControlStepKernel and, on a
+heightfield, the height scan and the next step's contact planes through
+TerrainSampler: the CUDA kernels for state on the card, their plain
+PyTorch versions for state on the CPU. On a heightfield the ground of a
+control step is one plane per contact point, sampled at its entry position
+(the reference's kernel semantics). Randomness comes from an explicit
+torch.Generator on the env's device.
 
 Step pipeline (ordering of the reference): action delay-mix + noise + clip
--> decimated PD/physics -> episode counters -> base quantities ->
-[resample commands, heading, push] -> termination -> rewards -> masked
-reset -> observations -> history and last_* updates -> obs clip.
+-> action lag -> decimated PD/physics -> episode counters -> base
+quantities -> [resample commands, heading, push] -> termination -> rewards
+-> terrain curriculum + masked reset -> gain redraw -> observations and
+height scan -> history and last_* updates -> obs clip.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..assets import load_robot
 from ..config.structs import XBotLCfg
-from ..ops.physics_kernel import ControlStepKernel, pack_state, unpack_state
-from ..physics.contact import ContactParams
+from ..ops.physics_kernel import ControlStepKernel, pack_body, pack_state, unpack_state
+from ..ops.terrain_sampler import TerrainSampler
+from ..physics.contact import ContactParams, Terrain
 from ..physics.engine import PhysState
+from ..physics.kinematics import RobotTensors, fk
 from ..physics.pgs import PGSParams
-from ..physics.spatial import quat_rotate, quat_rotate_inverse, quat_to_euler_xyz, wrap_to_pi
+from ..physics.spatial import (quat_apply_yaw, quat_rotate, quat_rotate_inverse,
+                               quat_to_euler_xyz, wrap_to_pi)
 from .rewards import RewardContext, build_reward_table, gait_updates
 
 
@@ -51,7 +61,19 @@ class EnvState(NamedTuple):
     obs_hist: torch.Tensor           # (N, frame_stack, K)
     critic_hist: torch.Tensor        # (N, c_frame_stack, K')
     episode_sums: torch.Tensor       # (N, n_rew)
+    env_origins: torch.Tensor        # (N, 3) spawn origin (terrain cell or plane grid)
+    terrain_levels: torch.Tensor     # (N,) int32 curriculum row (zeros on the plane)
+    terrain_types: torch.Tensor      # (N,) int32 curriculum column
     course_gain: torch.Tensor        # () reward curriculum gain
+    # None when the feature is off
+    body_com: Optional[torch.Tensor] = None         # (N, nb, 3) body-frame COMs
+    body_inertia: Optional[torch.Tensor] = None     # (N, nb, 3, 3)
+    motor_strengths: Optional[torch.Tensor] = None  # (N, nj)
+    motor_offsets: Optional[torch.Tensor] = None    # (N, nj)
+    kp_factors: Optional[torch.Tensor] = None       # (N, nj)
+    kd_factors: Optional[torch.Tensor] = None       # (N, nj)
+    lag_buffer: Optional[torch.Tensor] = None       # (N, L+1, nj) scaled actions, newest last
+    terrain_planes: Optional[torch.Tensor] = None   # (N, 3P) next step's contact planes
 
 
 class StepOutput(NamedTuple):
@@ -68,33 +90,47 @@ class StepOutput(NamedTuple):
 
 
 def _unported(cfg: XBotLCfg):
-    """Config features of the reference env that this slice does not port."""
-    dr, c = cfg.domain_rand, cfg.commands
+    """Config features of the reference env that the port does not have yet."""
+    c = cfg.commands
     checks = {
-        "terrain.mesh_type != 'plane'": cfg.terrain.mesh_type != "plane",
-        "terrain.measure_heights": cfg.terrain.measure_heights,
         "sim.contact_model != 'pgs'": cfg.sim.contact_model != "pgs",
         "sim.pgs_warm_start": cfg.sim.pgs_warm_start,
-        "gain randomization": (dr.randomize_motor_strength or dr.randomize_motor_offset
-                               or dr.randomize_kp_factor or dr.randomize_kd_factor),
-        "body randomization": (dr.randomize_base_com or dr.randomize_inertia
-                               or dr.randomize_link_mass),
-        "domain_rand.randomize_lag_timesteps": dr.randomize_lag_timesteps,
         "commands.sw_switch": c.sw_switch,
         "commands.curriculum": c.curriculum,
         "commands.axis_frac": c.axis_frac > 0.0,
+        "terrain.measure_heights on mesh_type 'plane'": (cfg.terrain.measure_heights
+                                                         and cfg.terrain.mesh_type == "plane"),
     }
     return [name for name, on in checks.items() if on]
 
 
+def lag_push(lag_buffer, actions_scaled, idx):
+    """The action-lag ring: push the newest scaled actions (N, nj) into
+    lag_buffer (N, L+1, nj), newest last, and take element idx (a (1,)
+    index tensor) of the new ring. Returns (new ring, (N, nj))."""
+    ring = torch.cat([lag_buffer[:, 1:], actions_scaled[:, None]], dim=1)
+    return ring, ring.index_select(1, idx)[:, 0]
+
+
 class XBotLEnv:
     """Static task object: the compiled model, config-derived constant
-    tensors on one device, the reward table and the control-step kernel."""
+    tensors on one device, the reward table, the control-step kernel and,
+    on a heightfield, the terrain and its sampler.
 
-    def __init__(self, cfg: XBotLCfg, urdf_path: str, device="cuda"):
+    terrain: the heightfield Terrain on `device` (the flat plane when None);
+    terrain_world: the generated world (env/terrain.py::TerrainWorld) that
+    gives the curriculum's origins and the sampler's raster."""
+
+    def __init__(self, cfg: XBotLCfg, urdf_path: str, device="cuda",
+                 terrain: Optional[Terrain] = None, terrain_world=None):
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        if cfg.terrain.mesh_type not in ("plane", "heightfield", "trimesh"):
+            raise ValueError(f"unknown terrain mesh_type {cfg.terrain.mesh_type!r}")
+        if (cfg.terrain.mesh_type != "plane") != (terrain_world is not None):
+            raise ValueError(f"mesh_type {cfg.terrain.mesh_type!r} needs a terrain world "
+                             "exactly when it is not 'plane' (utils/registry.py builds it)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = load_robot(urdf_path, cfg.asset, cfg.sim.armature)
@@ -133,12 +169,51 @@ class XBotLEnv:
         origins = np.zeros((N, 3))
         origins[:, 0] = cfg.terrain.env_spacing * xx.flatten()[:N]
         origins[:, 1] = cfg.terrain.env_spacing * yy.flatten()[:N]
-        self.env_origins = t(origins)
+        self.env_origins = t(origins)          # the plane's grid
+
+        # terrain: the curriculum's cell origins and the sampler
+        self.terrain = terrain if terrain is not None else Terrain.plane()
+        self.terrain_world = terrain_world
+        self.custom_origins = terrain_world is not None
+        self.sampler = None
+        if self.custom_origins:
+            self.terrain_origins = t(terrain_world.env_origins)      # (rows, cols, 3)
+            self.max_terrain_level = terrain_world.num_rows
+            self.sampler = TerrainSampler(terrain_world.height, cfg.terrain.vertical_scale,
+                                          terrain_world.horizontal_scale, terrain_world.border,
+                                          device=dev)
+        self.height_points = None
+        if cfg.terrain.measure_heights:
+            gx, gy = np.meshgrid(np.asarray(cfg.terrain.measured_points_x),
+                                 np.asarray(cfg.terrain.measured_points_y), indexing="ij")
+            self.height_points = t(np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], -1))
+        # contact points with a plane (sole corners, then termination
+        # spheres): bodies and offsets, and their xy in the default stance
+        # with the base at the origin (where a just-reset env's planes are
+        # sampled: its feet spawn in the air)
+        pt_body, pt_off = m.contact_points()
+        self._plane_bodies = [int(b) for b in pt_body] + [int(b) for b in m.term_sphere_body]
+        self._plane_offsets = t(np.concatenate([np.asarray(pt_off).reshape(-1, 3),
+                                                np.asarray(m.term_sphere_offset).reshape(-1, 3)]))
+        self._rt = RobotTensors.from_model(m, dev)
+        bp0, bq0 = fk(self._rt, torch.zeros(1, 3, device=dev),
+                      t([[1.0, 0.0, 0.0, 0.0]]), self.default_dof_pos[None])
+        self._default_contact_xy = self._contact_xy(bp0, bq0)[0]      # (P, 2)
+
+        # domain randomization of gains, bodies and the action lag
+        dr = cfg.domain_rand
+        self.dof_rand_on = (dr.randomize_motor_strength or dr.randomize_motor_offset
+                            or dr.randomize_kp_factor or dr.randomize_kd_factor)
+        self.body_rand_on = dr.randomize_base_com or dr.randomize_inertia
+        self.dof_rand_interval = int(np.ceil(dr.dof_rand_interval_s / self.dt))
+        self.kp, self.kd = t(kp), t(kd)
         self.resample_steps = int(cfg.commands.resampling_time / self.dt)
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.max_episode_length = cfg.max_episode_length
         self.smooth_idx = (self.reward_names.index("action_smoothness")
                            if "action_smoothness" in self.reward_names else None)
+        self.track_idx = (self.reward_names.index("tracking_lin_vel")
+                          if "tracking_lin_vel" in self.reward_names else None)
         # static gait-reference masks (leg pitch/knee/ankle per side)
         s1 = cfg.rewards.target_joint_pos_scale
         vl = np.zeros(self.nj, dtype=np.float32)
@@ -204,13 +279,123 @@ class XBotLEnv:
         keep = (torch.linalg.vector_norm(cmds[:, 0:2], dim=1) > 0.2).float()
         return torch.cat([cmds[:, 0:2] * keep[:, None], cmds[:, 2:]], dim=1)
 
-    def _reset_phys(self, gen, n):
+    def _reset_phys(self, gen, n, env_origins):
+        """Fresh state at the origins, with the xy jitter within 1 m of a
+        terrain cell's centre."""
         rand = self.cfg.init_state.reset_dof_rand
         qj = self.default_dof_pos + self._uniform(gen, (n, self.nj), -rand, rand)
-        base_pos = self._init_pos + self.env_origins[:n]
+        base_pos = self._init_pos + env_origins
+        if self.custom_origins:
+            jitter = self._uniform(gen, (n, 2), -1.0, 1.0)
+            base_pos = torch.cat([base_pos[:, 0:2] + jitter, base_pos[:, 2:3]], dim=1)
         quat = self._identity_quat.expand(n, 4).contiguous()
         return PhysState(base_pos=base_pos, base_quat=quat, qj=qj,
                          u=torch.zeros(n, 6 + self.nj, device=self.device))
+
+    def _sample_dof_rand(self, gen, n):
+        """(motor_strengths, motor_offsets, kp_factors, kd_factors), each
+        (n, nj): strength is one factor per env, the others per dof."""
+        dr = self.cfg.domain_rand
+        nj = self.nj
+
+        def u(shape, rng, enabled, fill):
+            if not enabled:
+                return torch.full((n, nj), fill, device=self.device)
+            return self._uniform(gen, shape, *rng).expand(n, nj)
+
+        ms = u((n, 1), dr.motor_strength_range, dr.randomize_motor_strength, 1.0)
+        mo = u((n, nj), dr.motor_offset_range, dr.randomize_motor_offset, 0.0)
+        kpf = u((n, nj), dr.kp_factor_range, dr.randomize_kp_factor, 1.0)
+        kdf = u((n, nj), dr.kd_factor_range, dr.randomize_kd_factor, 1.0)
+        return ms.contiguous(), mo, kpf, kdf
+
+    def _sample_body_rand(self, gen, n, masses):
+        """One link-mass factor per env on the non-base bodies, a base COM
+        offset, and 6 inertia factors per body applied symmetrically.
+        Returns (masses, com (n, nb, 3), inertia (n, nb, 3, 3))."""
+        dr = self.cfg.domain_rand
+        m = self.model
+        dev = self.device
+        if dr.randomize_link_mass:
+            f = self._uniform(gen, (n, 1), *dr.link_mass_range)
+            masses = torch.cat([masses[:, 0:1], masses[:, 1:] * f], dim=1)
+        com = torch.as_tensor(np.asarray(m.com), dtype=torch.float32, device=dev).repeat(n, 1, 1)
+        if dr.randomize_base_com:
+            off = torch.stack([self._uniform(gen, (n,), *dr.added_com_range_x),
+                               self._uniform(gen, (n,), *dr.added_com_range_y),
+                               self._uniform(gen, (n,), *dr.added_com_range_z)], dim=-1)
+            com[:, 0] += off
+        inertia = torch.as_tensor(np.asarray(m.inertia), dtype=torch.float32,
+                                  device=dev).repeat(n, 1, 1, 1)
+        if dr.randomize_inertia:
+            f6 = self._uniform(gen, (n, m.nb, 6), *dr.inertia_range)
+            fac = f6[..., (0, 1, 2, 1, 3, 4, 2, 4, 5)].reshape(n, m.nb, 3, 3)
+            inertia = inertia * fac
+        return masses, com, inertia
+
+    def _contact_xy(self, body_pos, body_quat):
+        """World xy (N, P, 2) of the contact points with a plane: sole
+        corners, then termination sphere centres."""
+        b = self._plane_bodies
+        p = body_pos[:, b] + quat_rotate(body_quat[:, b], self._plane_offsets)
+        return p[..., 0:2]
+
+    def contact_planes(self, phys: PhysState):
+        """(N, 3P) contact planes at the contact points of `phys` (one
+        sampler call): the first step's planes."""
+        body_pos, body_quat = fk(self._rt, phys.base_pos, phys.base_quat, phys.qj)
+        return self._sample_terrain(phys, self._contact_xy(body_pos, body_quat))[1]
+
+    def _sample_terrain(self, phys: PhysState, con_xy):
+        """One sampler call at the envs' current positions: the height scan
+        (N, Ps) under the yaw-rotated scan grid (None without a scan) and
+        the contact planes (N, 3P) [c0, gx, gy] at con_xy (N, P, 2)."""
+        N = phys.base_pos.shape[0]
+        if self.height_points is not None:
+            scan_xy = (quat_apply_yaw(phys.base_quat[:, None, :], self.height_points[None])
+                       + phys.base_pos[:, None, :])[..., 0:2]
+        else:
+            scan_xy = phys.base_pos.new_zeros(N, 0, 2)
+        scan_h, corners = self.sampler(scan_xy.contiguous(), con_xy.contiguous())
+        h, gx, gy = self.terrain.interp_from_corners(*corners)
+        c0 = h - gx * con_xy[..., 0] - gy * con_xy[..., 1]
+        planes = torch.stack([c0, gx, gy], dim=-1).reshape(N, -1)
+        return (scan_h if self.height_points is not None else None), planes
+
+    def _curriculum(self, gen, state, phys, episode_sums, episode_length, commands, term,
+                    time_out, reset_buf):
+        """The terrain game curriculum for the envs that reset: new levels
+        and their cell origins. Returns (terrain_levels, env_origins)."""
+        tc = self.cfg.terrain
+        levels = state.terrain_levels
+        if tc.curriculum_mode == "tracking":
+            # promote a clean timeout with good mean tracking under a walk
+            # command, demote a fall with probability demote_prob
+            q = episode_sums[:, self.track_idx] / (
+                torch.clamp(episode_length, min=1).float() * self.reward_scales[self.track_idx])
+            moving = torch.linalg.vector_norm(commands[:, 0:2], dim=1) > 0.1
+            move_up = time_out & moving & (q >= tc.promote_quality)
+            move_down = (term & ~time_out) & (
+                torch.rand(levels.shape, generator=gen, device=self.device) < tc.demote_prob)
+        else:
+            dist = torch.linalg.vector_norm(phys.base_pos[:, 0:2] - state.env_origins[:, 0:2], dim=1)
+            move_up = dist > self.terrain_world.terrain_length / 2
+            required = (torch.linalg.vector_norm(commands[:, 0:2], dim=1)
+                        * self.cfg.env.episode_length_s * 0.5)
+            move_down = (dist < required) & ~move_up
+        new = levels + move_up.int() - move_down.int()
+        rand_lvl = torch.randint(0, self.max_terrain_level, levels.shape, generator=gen,
+                                 device=self.device, dtype=levels.dtype)
+        new = torch.where(new >= self.max_terrain_level, rand_lvl, torch.clamp(new, min=0))
+        if tc.random_level_frac > 0.0:
+            # exploration floor: a uniform random row for a fraction of resets
+            explore = torch.rand(levels.shape, generator=gen,
+                                 device=self.device) < tc.random_level_frac
+            new = torch.where(explore, rand_lvl, new)
+        levels = torch.where(reset_buf, new, levels)
+        cells = self.terrain_origins.reshape(-1, 3)
+        origins = cells[(levels * self.terrain_world.num_cols + state.terrain_types).long()]
+        return levels, torch.where(reset_buf[:, None], origins, state.env_origins)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -236,8 +421,34 @@ class XBotLEnv:
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, device=dev, dtype=dtype)
 
+        if self.custom_origins:
+            max_init = (cfg.terrain.max_init_terrain_level if cfg.terrain.curriculum
+                        else self.max_terrain_level - 1)
+            terrain_levels = torch.randint(0, max_init + 1, (N,), generator=gen, device=dev,
+                                           dtype=torch.int32)
+            terrain_types = (torch.arange(N, device=dev) * self.terrain_world.num_cols
+                             // N).to(torch.int32)
+            env_origins = self.terrain_origins[terrain_levels.long(), terrain_types.long()]
+        else:
+            terrain_levels = z(N, dtype=torch.int32)
+            terrain_types = z(N, dtype=torch.int32)
+            env_origins = self.env_origins
+        extra = {}
+        if self.body_rand_on or dr.randomize_link_mass:
+            masses, com, inertia = self._sample_body_rand(gen, N, masses)
+            if self.body_rand_on:
+                extra.update(body_com=com, body_inertia=inertia)
+        if self.dof_rand_on:
+            ms, mo, kpf, kdf = self._sample_dof_rand(gen, N)
+            extra.update(motor_strengths=ms, motor_offsets=mo, kp_factors=kpf, kd_factors=kdf)
+        if dr.randomize_lag_timesteps:
+            extra["lag_buffer"] = z(N, dr.lag_timesteps + 1, self.nj)
+        phys = self._reset_phys(gen, N, env_origins)
+        if self.sampler is not None:
+            extra["terrain_planes"] = self.contact_planes(phys)
+
         return EnvState(
-            phys=self._reset_phys(gen, N), masses=masses, friction=friction,
+            phys=phys, masses=masses, friction=friction,
             episode_length=z(N, dtype=torch.int32), common_step=z(dtype=torch.int64),
             commands=commands, actions=z(N, self.nj), last_actions=z(N, self.nj),
             last_last_actions=z(N, self.nj), last_dof_vel=z(N, self.nj),
@@ -245,7 +456,9 @@ class XBotLEnv:
             last_contacts=z(N, 2, dtype=torch.bool), last_feet_z=z(N, 2),
             feet_height=z(N, 2), push_force=z(N, 2), push_torque=z(N, 3),
             obs_hist=z(N, cfg.env.frame_stack, nK), critic_hist=z(N, cfg.env.c_frame_stack, nKp),
-            episode_sums=z(N, self.n_rew), course_gain=torch.ones((), device=dev),
+            episode_sums=z(N, self.n_rew), env_origins=env_origins,
+            terrain_levels=terrain_levels, terrain_types=terrain_types,
+            course_gain=torch.ones((), device=dev), **extra,
         )
 
     # ------------------------------------------------------------------
@@ -270,12 +483,30 @@ class XBotLEnv:
         clip_a = cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
 
-        # ---- 2. decimated PD + physics ----
-        targets = (actions * self.action_scale + self.default_dof_pos).contiguous()
+        # ---- 2. action lag, decimated PD + physics ----
+        actions_scaled = actions * self.action_scale
+        lag_buffer = state.lag_buffer
+        if dr.randomize_lag_timesteps:
+            # the PD target is a random element of the lag ring, one index
+            # for all envs in a control step
+            idx = torch.randint(0, dr.lag_timesteps + 1, (1,), generator=gen, device=dev)
+            lag_buffer, lagged = lag_push(lag_buffer, actions_scaled, idx)
+            targets = lagged + self.default_dof_pos
+        else:
+            targets = actions_scaled + self.default_dof_pos
+        gains = body = None
+        if self.dof_rand_on:
+            # motor offsets fold into the setpoint: kp (q* - q + off) = kp ((q* + off) - q)
+            targets = targets + state.motor_offsets
+            gains = torch.cat([self.kp * state.kp_factors, self.kd * state.kd_factors,
+                               state.motor_strengths], dim=1)
+        if self.body_rand_on:
+            body = pack_body(state.body_com, state.body_inertia)
         pack, diag = self.physics(
-            pack_state(state.phys), state.masses, state.friction, targets,
+            pack_state(state.phys), state.masses, state.friction, targets.contiguous(),
             cfg.control.decimation, freeze=cfg.sim.freeze_mass_matrix,
-            freeze_prep=cfg.sim.pgs_freeze_prep,
+            freeze_prep=cfg.sim.pgs_freeze_prep, gains=gains, body=body,
+            planes=state.terrain_planes,
         )
         phys = unpack_state(pack, self.nj)
 
@@ -357,9 +588,14 @@ class XBotLEnv:
             rew = torch.clamp(rew, min=0.0)
         episode_sums = state.episode_sums + rew_terms
 
-        # ---- 6. masked auto-reset ----
+        # ---- 6. terrain curriculum and masked auto-reset ----
         r = reset_buf[:, None]
-        fresh = self._reset_phys(gen, N)
+        env_origins, terrain_levels = state.env_origins, state.terrain_levels
+        if self.custom_origins and cfg.terrain.curriculum:
+            terrain_levels, env_origins = self._curriculum(
+                gen, state, phys, episode_sums, episode_length, commands, term, time_out,
+                reset_buf)
+        fresh = self._reset_phys(gen, N, env_origins)
         phys = PhysState(*(torch.where(r, f, p) for f, p in zip(fresh, phys)))
         commands = torch.where(r, self._sample_commands(gen, N), commands)
         actions = torch.where(r, 0.0, actions)
@@ -368,6 +604,15 @@ class XBotLEnv:
         new_last_feet_z = torch.where(r, 0.0, new_last_feet_z)
         new_feet_height = torch.where(r, 0.0, new_feet_height)
         episode_length_out = torch.where(reset_buf, 0, episode_length).to(torch.int32)
+        if dr.randomize_lag_timesteps:
+            lag_buffer = torch.where(reset_buf[:, None, None], 0.0, lag_buffer)
+        dof_rand = {}
+        if self.dof_rand_on:
+            # redrawn at reset and on the dof_rand_interval grid
+            redraw = (((episode_length % self.dof_rand_interval) == 0) | reset_buf)[:, None]
+            names = ("motor_strengths", "motor_offsets", "kp_factors", "kd_factors")
+            for name, new in zip(names, self._sample_dof_rand(gen, N)):
+                dof_rand[name] = torch.where(redraw, new, getattr(state, name))
 
         rmask = reset_buf.float()
         ep_rew_sums = torch.sum(episode_sums * rmask[:, None], dim=0)
@@ -393,6 +638,20 @@ class XBotLEnv:
             push_force, push_torque, state.friction[:, None], state.masses[:, 0:1] / 30.0,
             stance_mask_o, contact.float(),
         ], dim=1)
+        terrain_planes = state.terrain_planes
+        mh = None
+        if self.sampler is not None:
+            # one sampler call at the exit (post-reset) positions: the height
+            # scan, and the next step's contact planes under the points the
+            # kernel's last substep reported; just-reset envs use the
+            # default-stance offsets at their fresh base
+            con_xy = self._contact_xy(diag.body_pos, diag.body_quat)
+            fresh_xy = phys.base_pos[:, None, 0:2] + self._default_contact_xy
+            con_xy = torch.where(r[:, :, None], fresh_xy, con_xy)
+            mh, terrain_planes = self._sample_terrain(phys, con_xy)
+        if mh is not None:
+            heights = torch.clamp(phys.base_pos[:, 2:3] - 0.5 - mh, -1.0, 1.0)
+            single_priv = torch.cat([single_priv, heights * os_.height_measurements], dim=1)
         single_obs = torch.cat([
             command_input, q, dq, actions, base_ang_vel_o * os_.ang_vel, base_euler_o * os_.quat,
         ], dim=1)
@@ -420,7 +679,11 @@ class XBotLEnv:
             feet_air_time=new_air, last_contacts=new_last_contacts,
             last_feet_z=new_last_feet_z, feet_height=new_feet_height,
             push_force=push_force, push_torque=push_torque, obs_hist=obs_hist,
-            critic_hist=critic_hist, episode_sums=episode_sums, course_gain=state.course_gain,
+            critic_hist=critic_hist, episode_sums=episode_sums, env_origins=env_origins,
+            terrain_levels=terrain_levels, terrain_types=state.terrain_types,
+            course_gain=state.course_gain, body_com=state.body_com,
+            body_inertia=state.body_inertia, lag_buffer=lag_buffer,
+            terrain_planes=terrain_planes, **dof_rand,
         )
         out = StepOutput(
             obs=obs, privileged_obs=priv_obs, rew=rew, reset=reset_buf, time_outs=time_out,

@@ -39,26 +39,44 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(source: str) -> BuiltLibrary:
-    """Compile csrc/<source> (if not built yet) and load it."""
+def _target(source: str):
     src_path = os.path.join(CSRC_DIR, source)
     with open(src_path, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
-    seconds, ptxas = 0.0, ()
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = (proc.stdout + proc.stderr).splitlines()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n" + "\n".join(log))
-        os.replace(tmp, out)
-        ptxas = tuple(line.strip() for line in log if line.strip())
-    return BuiltLibrary(lib=ctypes.CDLL(out), path=out, seconds=seconds, ptxas=ptxas)
+    return src_path, os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
+
+
+def build_all(sources) -> dict:
+    """Compile every csrc/<source> not built yet, one nvcc each, all started
+    together, and load them. Returns {source: BuiltLibrary}."""
+    started = {}
+    for source in sources:
+        src_path, out = _target(source)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[source] = (proc, tmp, out, time.perf_counter())
+    built = {}
+    for source in sources:
+        seconds, ptxas = 0.0, ()
+        if source in started:
+            proc, tmp, out, t0 = started[source]
+            log = proc.communicate()[0].splitlines()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n"
+                                   + "\n".join(log))
+            os.replace(tmp, out)
+            ptxas = tuple(line.strip() for line in log if line.strip())
+        out = _target(source)[1]
+        built[source] = BuiltLibrary(lib=ctypes.CDLL(out), path=out, seconds=seconds,
+                                     ptxas=ptxas)
+    return built
+
+
+def build(source: str) -> BuiltLibrary:
+    """Compile csrc/<source> (if not built yet) and load it."""
+    return build_all([source])[source]

@@ -5,11 +5,17 @@ plain version.
 PD, dynamics, block-PGS contact and Euler) for every env. On a CUDA tensor
 it launches the hand-written kernel csrc/control_step.cu, the port of
 humanoid_tpu/ops/physics_kernel.py::_control_kernel; on a CPU tensor it
-runs `control_step_plain`, the port of engine.control_step_pgs in plain
-PyTorch. There is no fallback from one to the other.
+runs `control_step_plain`: engine.control_step_pgs with the kernel's PD
+law, per-env gains and body, and ground planes, in plain PyTorch. There is
+no fallback from one to the other.
 
 Layouts follow the reference wrapper (_build_kernel_fn): the state pack is
 (7 + nj + nv, N) env-last, masses (N, nb), friction (N,), targets (N, nj).
+The optional inputs are env-major with the reference's row order
+(_extra_rows): gains (N, 3 nj) = [kp_eff | kd_eff | strength], body
+(N, 9 nb) = [COM xyz per body | inertia xx xy xz yy yz zz per body], planes
+(N, 3 P) = [c0, gx, gy] per contact point (sole corners, then termination
+spheres).
 """
 from __future__ import annotations
 
@@ -150,22 +156,53 @@ def unpack_diag(diag: torch.Tensor, model) -> PhysDiag:
     )
 
 
+def n_points(model) -> int:
+    """Contact points with a ground plane: sole corners, then termination spheres."""
+    return len(model.contact_points()[0]) + len(model.term_sphere_body)
+
+
+def unpack_body(body, nb: int):
+    """(N, 9 nb) body rows -> com (N, nb, 3), symmetric inertia (N, nb, 3, 3)."""
+    N = body.shape[0]
+    com = body[:, :3 * nb].reshape(N, nb, 3)
+    xx, xy, xz, yy, yz, zz = body[:, 3 * nb:].reshape(N, nb, 6).unbind(-1)
+    inertia = torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], dim=-1).reshape(N, nb, 3, 3)
+    return com, inertia
+
+
+def pack_body(com, inertia):
+    """com (N, nb, 3), inertia (N, nb, 3, 3) -> (N, 9 nb) body rows."""
+    N, nb = com.shape[:2]
+    i6 = inertia.reshape(N, nb, 9)[:, :, (0, 1, 2, 4, 5, 8)]
+    return torch.cat([com.reshape(N, -1), i6.reshape(N, -1)], dim=1)
+
+
 def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: ContactParams,
                        pgs_params: PGSParams, dt: float, state_pack, masses, friction,
-                       targets, decimation: int, freeze: bool, freeze_prep: bool):
+                       targets, decimation: int, freeze: bool, freeze_prep: bool,
+                       gains=None, body=None, planes=None):
     """The plain PyTorch version of the kernel: engine.control_step_pgs with
     the PD torque of the kernel. kp/kd/tau_lim are (nj,) tensors on the
-    state's device. Returns (state pack, PhysDiag)."""
+    state's device; gains, body and planes as the kernel takes them (None:
+    the table's gains, the model's bodies, the flat plane). Returns
+    (state pack, PhysDiag)."""
     nj = rt.nj
+    if gains is not None:
+        kp, kd, strength = gains[:, :nj], gains[:, nj:2 * nj], gains[:, 2 * nj:]
 
     def torque_fn(s):
         tau = kp * (targets - s.qj) - kd * s.u[:, 6:]
+        if gains is not None:
+            tau = tau * strength
         return torch.clamp(tau, -tau_lim, tau_lim)
 
+    com = inertia = None
+    if body is not None:
+        com, inertia = unpack_body(body, rt.nb)
     phys, diag = control_step_pgs(
-        rt, EnvPhysParams(masses=masses, friction=friction), Terrain.plane(),
-        contact_params, pgs_params, unpack_state(state_pack, nj), torque_fn,
-        decimation, dt, freeze_mass_matrix=freeze, freeze_prep=freeze_prep,
+        rt, EnvPhysParams(masses=masses, friction=friction, com=com, inertia=inertia),
+        Terrain.plane(), contact_params, pgs_params, unpack_state(state_pack, nj), torque_fn,
+        decimation, dt, freeze_mass_matrix=freeze, freeze_prep=freeze_prep, planes=planes,
     )
     return pack_state(phys), diag
 
@@ -208,7 +245,7 @@ class ControlStepKernel:
             info = build("control_step.cu")
             lib = info.lib
             lib.control_step_launch.restype = ctypes.c_int
-            lib.control_step_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
+            lib.control_step_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             lib.model_table_bytes.restype = ctypes.c_int
             lib.model_table_bytes.argtypes = []
@@ -220,26 +257,33 @@ class ControlStepKernel:
         return self._lib
 
     def plain(self, state_pack, masses, friction, targets, decimation: int,
-              freeze: bool = True, freeze_prep: bool = True):
+              freeze: bool = True, freeze_prep: bool = True, gains=None, body=None,
+              planes=None):
         rt, (kp, kd, lim), _ = self._device_consts(state_pack.device)
         return control_step_plain(rt, kp, kd, lim, self.contact_params, self.pgs_params, self.dt,
                                   state_pack, masses, friction, targets, decimation,
-                                  freeze, freeze_prep)
+                                  freeze, freeze_prep, gains, body, planes)
 
     def __call__(self, state_pack, masses, friction, targets, decimation: int,
-                 freeze: bool = True, freeze_prep: bool = True):
-        """One control step. Returns (state pack (n_state, N), PhysDiag)."""
+                 freeze: bool = True, freeze_prep: bool = True, gains=None, body=None,
+                 planes=None):
+        """One control step. gains (N, 3 nj), body (N, 9 nb) and planes
+        (N, 3 P) are optional (see the module docstring). Returns
+        (state pack (n_state, N), PhysDiag)."""
         dev = state_pack.device
         if dev.type == "cpu":
             return self.plain(state_pack, masses, friction, targets, decimation,
-                              freeze, freeze_prep)
+                              freeze, freeze_prep, gains, body, planes)
         if dev.type != "cuda":
             raise ValueError(f"control step runs on cuda or cpu tensors, not {dev.type}")
         N = state_pack.shape[1]
         m = self.model
         expect = {"state_pack": (self.n_state, N), "masses": (N, m.nb),
-                  "friction": (N,), "targets": (N, m.nj)}
-        for name, x in zip(expect, (state_pack, masses, friction, targets)):
+                  "friction": (N,), "targets": (N, m.nj), "gains": (N, 3 * m.nj),
+                  "body": (N, 9 * m.nb), "planes": (N, 3 * n_points(m))}
+        for name, x in zip(expect, (state_pack, masses, friction, targets, gains, body, planes)):
+            if x is None and name in ("gains", "body", "planes"):
+                continue
             if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous() \
                     or tuple(x.shape) != expect[name]:
                 raise ValueError(
@@ -254,6 +298,7 @@ class ControlStepKernel:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.control_step_launch(
             state_pack.data_ptr(), masses.data_ptr(), friction.data_ptr(), targets.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in (gains, body, planes)),
             out.data_ptr(), diag.data_ptr(), N, table.data_ptr(), int(decimation),
             int(bool(freeze)), int(bool(freeze_prep)), int(self.pgs_params.iterations), stream)
         if err != 0:
@@ -265,17 +310,23 @@ class ControlStepKernel:
 # ---------------------------------------------------------------------------
 # what one launch must do: the bound's inputs
 
-def launch_bytes(model, N: int) -> int:
+def launch_bytes(model, N: int, gains: bool = False, body: bool = False,
+                 planes: bool = False) -> int:
     """Bytes one launch must move: every input read once (state, masses,
-    friction, targets), every output written once (state, diagnostics)."""
+    friction, targets and the optional gains, body and planes), every
+    output written once (state, diagnostics)."""
     n_state = 7 + model.nj + model.nv
-    return 4 * N * (2 * n_state + model.nb + 1 + model.nj + diag_rows(model))
+    extras = 3 * model.nj * gains + 9 * model.nb * body + 3 * n_points(model) * planes
+    return 4 * N * (2 * n_state + model.nb + 1 + model.nj + diag_rows(model) + extras)
 
 
 def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
-                       iterations: int) -> int:
+                       iterations: int, gains: bool = False, body: bool = False,
+                       planes: bool = False) -> int:
     """fp32 operations (add, mul, div, compare, sqrt, sin, ...) one env
-    needs in one launch, counted from the loops of csrc/control_step.cu."""
+    needs in one launch, counted from the loops of csrc/control_step.cu.
+    The body input only replaces loads; gains add the strength product,
+    planes the plane normals, gaps and the tangent bases."""
     nj, nb, nv = model.nj, model.nb, model.nv
     pt_body, _ = model.contact_points()
     K, R = len(pt_body), 3 * len(pt_body)
@@ -290,14 +341,17 @@ def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
     chol = sum(2 * j + 2 + (nv - 1 - j) * (2 * j + 1) for j in range(nv))
     own_anc = [int(anc[k + 1].sum()) for k in range(nj)]   # ancestor-or-self joints
     crba = 10 * (nb - 1) + sum(iapply + 11 * a + 1 for a in own_anc) + chol
+    normal, gap = 8, 6                               # plane_normal, the plane's height and gap
     spheres = sum(qrot + 31 + cross + 6 + 12 * int(n_anc[int(b)])
+                  + planes * (normal + gap + dot + 6 + 2 + 6)
                   for b in model.term_sphere_body) + nj + nv + solve + 2 * nv
+    frames = planes * K * (normal + 2 + cross + dot + 2 + 3 + cross)
     prep = sum(qrot + 6 + 3 * (cross + 20 * int(n_anc[int(b)])) for b in pt_body) \
-        + R * solve + R * (R + 1) * nv
-    pgs = K * (qrot + 3) + 2 * R * nv + iterations * K * (6 * R + 50) \
-        + 2 * R * nv + solve + 6 * K
+        + frames + R * solve + R * (R + 1) * nv
+    pgs = K * (qrot + 3 + planes * (normal + gap)) + 2 * R * nv \
+        + iterations * K * (6 * R + 50) + 2 * R * nv + solve + (6 + 12 * planes) * K
     integrate = cross + nv + 6 + 6 + 3 + 6 + 1 + 2 + 4 + qmul + 9 + 4 + 2 * nj
-    substep = 6 * nj + kin + vel_bias + spheres + pgs + integrate
+    substep = (6 + gains) * nj + kin + vel_bias + spheres + pgs + integrate
     if not freeze:
         substep += crba
     if not (freeze and freeze_prep):

@@ -21,8 +21,12 @@ def _cross(a, b):
 
 
 def compute_kinematics_bias(rt: RobotTensors, base_pos, base_quat, qj, u,
-                            mass: Optional[torch.Tensor] = None):
+                            mass: Optional[torch.Tensor] = None,
+                            com: Optional[torch.Tensor] = None,
+                            inertia: Optional[torch.Tensor] = None):
     """FK, joint screws, spatial inertias, the velocity/bias recursion.
+    mass (N, nb), com (N, nb, 3) and inertia (N, nb, 3, 3) are per-env
+    overrides of the model's (the body domain randomization).
 
     Returns (body_pos (N,nb,3), body_quat (N,nb,4), S (N,nv,6),
     I_sp (N,nb,6,6), v_sp (N,nb,6), C (N,nv))."""
@@ -40,9 +44,13 @@ def compute_kinematics_bias(rt: RobotTensors, base_pos, base_quat, qj, u,
 
     if mass is None:
         mass = rt.mass.expand(N, nb)
+    if com is None:
+        com = rt.com.expand(N, nb, 3)
+    if inertia is None:
+        inertia = rt.inertia.expand(N, nb, 3, 3)
     R = quat_to_mat(body_quat)
-    com_w = body_pos + torch.einsum("nbij,bj->nbi", R, rt.com)
-    I_w = torch.einsum("nbij,bjk,nblk->nbil", R, rt.inertia, R)
+    com_w = body_pos + torch.einsum("nbij,nbj->nbi", R, com)
+    I_w = torch.einsum("nbij,nbjk,nblk->nbil", R, inertia, R)
     rx = skew(com_w - A[:, None])
     m3 = mass[..., None, None]
     eye3 = torch.eye(3, device=dev, dtype=dt)

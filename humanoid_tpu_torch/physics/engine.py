@@ -38,23 +38,33 @@ class PhysDiag(NamedTuple):
 
 
 class EnvPhysParams(NamedTuple):
-    masses: torch.Tensor     # (N, nb)
-    friction: torch.Tensor   # (N,)
+    masses: torch.Tensor                   # (N, nb)
+    friction: torch.Tensor                 # (N,)
+    com: Optional[torch.Tensor] = None     # (N, nb, 3) body-frame COMs; None = the model's
+    inertia: Optional[torch.Tensor] = None  # (N, nb, 3, 3) body-frame inertias
 
 
 def mass_matrix_factor(rt: RobotTensors, params: EnvPhysParams, state: PhysState):
     """Cholesky factor (N, nv, nv) of the CRBA mass matrix at `state`."""
-    _, _, S, I_sp, _, _ = compute_kinematics_bias(
-        rt, state.base_pos, state.base_quat, state.qj, state.u, mass=params.masses)
+    _, _, S, I_sp, _, _ = _kinematics_bias(rt, params, state)
     return torch.linalg.cholesky(assemble_mass_matrix(rt, S, I_sp))
 
 
-def _sphere_forces(rt, body_pos, body_quat, v_sp, terrain, mu, contact_params):
+def _kinematics_bias(rt: RobotTensors, params: EnvPhysParams, state: PhysState):
+    return compute_kinematics_bias(rt, state.base_pos, state.base_quat, state.qj, state.u,
+                                   mass=params.masses, com=params.com, inertia=params.inertia)
+
+
+def _sphere_forces(rt, body_pos, body_quat, v_sp, terrain, mu, contact_params, planes=None):
     """Penalty forces on the termination proxy spheres. Returns their
-    generalized force (N, nv) and normal forces (N, nt)."""
+    generalized force (N, nv) and normal forces (N, nt). Against `terrain`
+    the force is vertical at the sampled height (the reference's PGS path);
+    against `planes` (N, 3P) it acts along each sphere's plane normal (the
+    kernel's)."""
     m = rt.model
     N = body_pos.shape[0]
     nt = len(m.term_sphere_body)
+    n_fpts = len(m.contact_points()[0])
     dev, dt = body_pos.device, body_pos.dtype
     A0 = body_pos[:, 0]
     sph_tau = torch.zeros(N, rt.nv, device=dev, dtype=dt)
@@ -67,7 +77,12 @@ def _sphere_forces(rt, body_pos, body_quat, v_sp, terrain, mu, contact_params):
         low = body_pos[:, b] + quat_rotate(body_quat[:, b], off)
         low = low - torch.tensor([0.0, 0.0, 1.0], device=dev, dtype=dt) * float(m.term_sphere_radius[i])
         v = v_sp[:, b, 3:6] + torch.linalg.cross(v_sp[:, b, 0:3], low - A0, dim=-1)
-        f, fn = _point_forces(low, v, terrain.sample(low[..., 0:2]), mu, contact_params)
+        if planes is None:
+            f, fn = _point_forces(low, v, terrain.sample(low[..., 0:2]), mu, contact_params)
+        else:
+            c0, gx, gy = planes[:, 3 * (n_fpts + i):3 * (n_fpts + i) + 3].unbind(-1)
+            f, fn = _point_forces(low, v, c0 + gx * low[:, 0] + gy * low[:, 1], mu,
+                                  contact_params, grads=(gx, gy))
         term_fn[:, i] = fn
         n_mom = torch.linalg.cross(low - A0, f, dim=-1)
         contrib = (torch.einsum("ni,nji->nj", n_mom, w_j)
@@ -87,24 +102,25 @@ def substep_batch_pgs(
     dt: float,
     L: Optional[torch.Tensor] = None,
     prep: Optional[PGSPrep] = None,
+    planes: Optional[torch.Tensor] = None,
 ) -> Tuple[PhysState, PhysDiag]:
     """One velocity-stepping substep with the block-PGS foot contact.
     L: frozen mass-matrix factor, else CRBA + factor here. prep: frozen
-    contact prep, else built here from this substep's configuration."""
+    contact prep, else built here from this substep's configuration.
+    planes: per-point ground planes (N, 3P) in place of `terrain`."""
     N = tau_j.shape[0]
-    body_pos, body_quat, S, I_sp, v_sp, C = compute_kinematics_bias(
-        rt, state.base_pos, state.base_quat, state.qj, state.u, mass=params.masses)
+    body_pos, body_quat, S, I_sp, v_sp, C = _kinematics_bias(rt, params, state)
     if L is None:
         L = torch.linalg.cholesky(assemble_mass_matrix(rt, S, I_sp))
 
     sph_tau, term_fn = _sphere_forces(
-        rt, body_pos, body_quat, v_sp, terrain, params.friction, contact_params)
+        rt, body_pos, body_quat, v_sp, terrain, params.friction, contact_params, planes)
     zeros6 = torch.zeros(N, 6, device=tau_j.device, dtype=tau_j.dtype)
     tau_gen = torch.cat([zeros6, tau_j], dim=1) + sph_tau
     udot_free = torch.cholesky_solve((tau_gen - C)[..., None], L)[..., 0]
     u_free = state.u + dt * udot_free
 
-    pts, vels, phi, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain)
+    pts, vels, phi, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain, planes)
     if prep is None:
         prep = pgs_prepare(L, n, J)
     u_plus, point_forces = pgs_solve(u_free, prep, phi, params.friction, dt, pgs_params)
@@ -133,11 +149,11 @@ def substep_batch_pgs(
     return new_state, diag
 
 
-def frozen_prep(rt: RobotTensors, params: EnvPhysParams, state: PhysState, L, terrain):
+def frozen_prep(rt: RobotTensors, params: EnvPhysParams, state: PhysState, L, terrain,
+                planes=None):
     """Contact prep from the configuration of `state` (freeze_prep)."""
-    body_pos, body_quat, _, _, v_sp, _ = compute_kinematics_bias(
-        rt, state.base_pos, state.base_quat, state.qj, state.u, mass=params.masses)
-    _, _, _, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain)
+    body_pos, body_quat, _, _, v_sp, _ = _kinematics_bias(rt, params, state)
+    _, _, _, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain, planes)
     return pgs_prepare(L, n, J)
 
 
@@ -153,19 +169,22 @@ def control_step_pgs(
     dt: float,
     freeze_mass_matrix: bool = True,
     freeze_prep: bool = False,
+    planes: Optional[torch.Tensor] = None,
 ) -> Tuple[PhysState, PhysDiag]:
     """`decimation` PGS substeps with the PD torque recomputed each one.
     freeze_mass_matrix factors M once, from the entry configuration;
     freeze_prep (only with a frozen factor) also builds the contact prep
-    once from it."""
+    once from it. The ground is `terrain`, sampled every substep (the
+    reference's semantics), or `planes` (N, 3P), one plane per contact
+    point held for the whole control step (the kernel's)."""
     L = prep = None
     if freeze_mass_matrix:
         L = mass_matrix_factor(rt, params, state)
         if freeze_prep:
-            prep = frozen_prep(rt, params, state, L, terrain)
+            prep = frozen_prep(rt, params, state, L, terrain, planes)
     diag = None
     for _ in range(decimation):
         state, diag = substep_batch_pgs(
             rt, params, terrain, contact_params, pgs_params, state,
-            torque_fn(state), dt, L=L, prep=prep)
+            torque_fn(state), dt, L=L, prep=prep, planes=planes)
     return state, diag

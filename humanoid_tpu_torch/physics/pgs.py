@@ -16,11 +16,11 @@ always fresh.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .contact import Terrain
+from .contact import Terrain, plane_normal
 from .kinematics import RobotTensors
 from .spatial import quat_rotate, skew
 
@@ -52,12 +52,19 @@ def contact_frames(n):
     return t1, t2
 
 
-def foot_contact_set(rt: RobotTensors, body_pos, body_quat, v_sp, terrain: Terrain):
-    """Foot-point kinematics and Jacobians on the flat plane.
+def foot_contact_set(rt: RobotTensors, body_pos, body_quat, v_sp, terrain: Terrain,
+                     planes: Optional[torch.Tensor] = None):
+    """Foot-point kinematics, Jacobians and terrain geometry.
+
+    The ground is `terrain`, sampled at the points (the flat plane or a
+    heightfield: the gap along the normal, the normal from the local
+    gradient), or, when given, `planes` (N, 3P): a plane [c0, gx, gy] per
+    contact point in contact_points() order (sole corners, then the
+    termination spheres), height c0 + gx x + gy y, held for a control step
+    (the kernel's semantics).
 
     Returns (pts (N,K,3), vels (N,K,3), phi (N,K), n (N,K,3), J (N,K,3,nv))
     with K = 4 corners x n_feet and J mapping u to world point velocity."""
-    del terrain  # flat plane only
     A = body_pos[:, 0]
     pt_body, pt_off = rt.model.contact_points()
     pts, vels = [], []
@@ -70,9 +77,19 @@ def foot_contact_set(rt: RobotTensors, body_pos, body_quat, v_sp, terrain: Terra
         vels.append(v)
     pts = torch.stack(pts, dim=1)
     vels = torch.stack(vels, dim=1)
-    n = torch.zeros_like(pts)
-    n[..., 2] = 1.0
-    phi = pts[..., 2]
+    K = pts.shape[1]
+    if planes is not None:
+        c0, gx, gy = planes.reshape(pts.shape[0], -1, 3)[:, :K].unbind(-1)
+        n, inv_l = plane_normal(gx, gy)
+        phi = (pts[..., 2] - (c0 + gx * pts[..., 0] + gy * pts[..., 1])) * inv_l
+    elif terrain.flat:
+        n = torch.zeros_like(pts)
+        n[..., 2] = 1.0
+        phi = pts[..., 2]
+    else:
+        heights, gx, gy = terrain.sample_with_grad(pts[..., 0:2])
+        n, inv_l = plane_normal(gx, gy)
+        phi = (pts[..., 2] - heights) * inv_l
 
     r = pts - A[:, None]                                        # (N,K,3)
     w_j = quat_rotate(body_quat[:, 1:], rt.joint_axis)          # (N,nj,3)

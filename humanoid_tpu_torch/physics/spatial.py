@@ -50,6 +50,13 @@ def quat_rotate_inverse(q, v):
     return v - qw * t + torch.linalg.cross(qv, t, dim=-1)
 
 
+def quat_apply_yaw(q, v):
+    """Rotate v by the yaw part of q only (x and y of the wxyz quaternion
+    zeroed, then renormalized)."""
+    q_yaw = torch.cat([q[..., 0:1], torch.zeros_like(q[..., 1:3]), q[..., 3:4]], dim=-1)
+    return quat_rotate(quat_normalize(q_yaw), v)
+
+
 def quat_from_axis_angle(axis, angle):
     """Unit quaternion for a rotation of `angle` about unit `axis`."""
     half = 0.5 * angle

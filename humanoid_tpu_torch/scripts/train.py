@@ -3,6 +3,9 @@
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH]
 
+Tasks: humanoid_ppo, humanoid_ppo_terrain, humanoid_ppo_trimesh
+(utils/registry.py).
+
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
 from __future__ import annotations

@@ -1,8 +1,15 @@
-"""Task registry of the port: name -> (env cfg, train cfg).
+"""Task registry of the port: name -> (env cfg, train cfg), with the
+reference registry's configs.
 
-Only `humanoid_ppo` is registered: the shipping flat-ground task with
-block-PGS contact (6 cold sweeps), the frozen mass-matrix factor and the
-frozen contact prep, as the reference registry defines it."""
+  humanoid_ppo          flat ground, block-PGS contact (6 cold sweeps),
+                        frozen mass-matrix factor and contact prep
+  humanoid_ppo_terrain  the same physics on the heightfield curriculum
+                        (humanoid generator set) with the 187-point height
+                        scan in the critic frame, the extended domain
+                        randomization and the tracking curriculum
+  humanoid_ppo_trimesh  as humanoid_ppo_terrain on the base generator set,
+                        with the vertical-face (trimesh) sampling
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -10,13 +17,47 @@ import os
 from typing import Dict, Optional, Tuple
 
 from ..assets import write_xbot_topology_urdf
-from ..config.structs import SimCfg, XBotLCfg, XBotLCfgPPO
+from ..config.structs import (DomainRandCfg, EnvCfg, RewardScalesCfg, RewardsCfg, SimCfg,
+                              TerrainCfg, XBotLCfg, XBotLCfgPPO)
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 
+_PGS = SimCfg(contact_model="pgs", pgs_freeze_prep=True, pgs_iterations=6)
+# the terrain tasks' extended domain randomization and tracking-biased rewards
+_TERRAIN_DR = DomainRandCfg(
+    randomize_link_mass=True, randomize_base_com=True, randomize_inertia=True,
+    randomize_motor_strength=True, randomize_motor_offset=True, randomize_kp_factor=True,
+    randomize_kd_factor=True, randomize_lag_timesteps=True,
+)
+_TERRAIN_REWARDS = RewardsCfg(
+    low_speed_lo=0.7, tracking_sigma=12.0, low_speed_directional=True,
+    scales=RewardScalesCfg(tracking_lin_vel=2.4, low_speed=0.4),
+)
+
 _REGISTRY: Dict[str, Tuple[XBotLCfg, XBotLCfgPPO]] = {
-    "humanoid_ppo": (
-        XBotLCfg(sim=SimCfg(contact_model="pgs", pgs_freeze_prep=True, pgs_iterations=6)),
+    "humanoid_ppo": (XBotLCfg(sim=_PGS), XBotLCfgPPO()),
+    "humanoid_ppo_terrain": (
+        XBotLCfg(
+            env=EnvCfg(single_num_privileged_obs=73 + 187),
+            terrain=TerrainCfg(
+                mesh_type="heightfield", measure_heights=True,
+                terrain_proportions=(0.05, 0.15, 0.15, 0.1, 0.1, 0.1, 0.1, 0.25),
+                curriculum_mode="tracking", random_level_frac=0.1,
+            ),
+            sim=_PGS, domain_rand=_TERRAIN_DR, rewards=_TERRAIN_REWARDS,
+        ),
+        XBotLCfgPPO(),
+    ),
+    "humanoid_ppo_trimesh": (
+        XBotLCfg(
+            env=EnvCfg(single_num_privileged_obs=73 + 187),
+            terrain=TerrainCfg(
+                mesh_type="trimesh", measure_heights=True, generator_set="base",
+                terrain_proportions=(0.15, 0.15, 0.15, 0.15, 0.15, 0.1, 0.1),
+                curriculum_mode="tracking", random_level_frac=0.1,
+            ),
+            sim=_PGS, domain_rand=_TERRAIN_DR, rewards=_TERRAIN_REWARDS,
+        ),
         XBotLCfgPPO(),
     ),
 }
@@ -50,14 +91,29 @@ def default_urdf() -> str:
     return write_xbot_topology_urdf(BUILD_DIR)
 
 
-def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None):
+def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda"):
+    """The env of a config: on a heightfield or trimesh task, the world from
+    the port's numpy generator (seeded by the config), with trimesh's
+    vertical faces at slope_treshold x horizontal_scale of rise per cell."""
+    from ..env.terrain import build_terrain
     from ..env.xbotl import XBotLEnv
+    from ..physics.contact import Terrain
 
+    tc = env_cfg.terrain
+    if tc.mesh_type not in ("heightfield", "trimesh"):
+        return XBotLEnv(env_cfg, urdf, device=device)
+    world = build_terrain(tc, seed=env_cfg.seed)
+    wall_thresh = tc.slope_treshold * tc.horizontal_scale if tc.mesh_type == "trimesh" else 0.0
+    terrain = Terrain.heightfield(world.height, world.horizontal_scale, world.border,
+                                  wall_thresh=wall_thresh, device=device)
+    return XBotLEnv(env_cfg, urdf, device=device, terrain=terrain, terrain_world=world)
+
+
+def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None):
     env_cfg, train_cfg = get_cfgs(name)
     if args is not None:
         env_cfg, train_cfg = update_cfg_from_args(env_cfg, train_cfg, args)
-    env = XBotLEnv(env_cfg, urdf or default_urdf(), device=device)
-    return env, env_cfg, train_cfg
+    return build_env(env_cfg, urdf or default_urdf(), device), env_cfg, train_cfg
 
 
 def make_alg_runner(env, train_cfg: XBotLCfgPPO):

@@ -161,7 +161,7 @@ def test_slice_rollout_matches_reference(tmp_path_factory):
     ts = EnvState(phys=PhysState(*(torch.as_tensor(np.array(x)) for x in js.phys)),
                   common_step=torch.as_tensor(int(js.common_step)),
                   **{f: torch.as_tensor(np.array(getattr(js, f))) for f in EnvState._fields
-                     if f not in ("phys", "common_step")})
+                     if f not in ("phys", "common_step") and getattr(js, f) is not None})
     step = jax.jit(jenv.step)
     gen = torch.Generator().manual_seed(0)
     jobs = jnp.zeros((N, OBS))
@@ -198,15 +198,17 @@ def test_train_iteration_runs_at_small_size():
     assert any(not torch.equal(p, q) for p, q in zip(runner.net.parameters(), before))
 
 
-def test_registry_config_matches_reference():
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain", "humanoid_ppo_trimesh"])
+def test_registry_config_matches_reference(task):
     from humanoid_tpu.utils import registry as jreg
     from humanoid_tpu_torch.utils import registry
 
-    je, jt = jreg.get_cfgs("humanoid_ppo")
-    te, tt = registry.get_cfgs("humanoid_ppo")
+    je, jt = jreg.get_cfgs(task)
+    te, tt = registry.get_cfgs(task)
     assert dataclasses.asdict(te) == dataclasses.asdict(je)
     assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
-    assert registry.list_tasks() == ["humanoid_ppo"]
+    assert registry.list_tasks() == ["humanoid_ppo", "humanoid_ppo_terrain",
+                                     "humanoid_ppo_trimesh"]
 
 
 def test_train_cli_needs_a_card_unless_asked_for_cpu():

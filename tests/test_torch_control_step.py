@@ -14,6 +14,13 @@ state some lightly loaded corners hover within float32 round-off of zero
 gap, and whether they count as in contact then differs between any two
 float32 implementations, which sends those envs' velocities apart by up to
 ~0.05 m/s within one control step.
+
+The kernel's optional inputs: per-env gains and bodies (random, in the
+ranges of the reference's domain randomization) against the reference
+engine with EnvPhysParams(com, inertia) and its gain torque; ground planes
+on an exactly linear ramp, where a per-substep bilinear sample of the
+heightfield and a per-control-step tangent plane are the same surface,
+against the reference engine on that heightfield. The same bounds hold.
 """
 import ctypes
 import os
@@ -32,10 +39,13 @@ from humanoid_tpu.physics.contact import Terrain as JTerrain
 from humanoid_tpu.physics.pgs import PGSParams as JPGSParams
 from humanoid_tpu.physics.urdf import load_urdf as jax_load_urdf
 from humanoid_tpu_torch.assets import write_xbot_topology_urdf
-from humanoid_tpu_torch.ops.physics_kernel import (ControlStepKernel, ModelTable, pack_state,
+from humanoid_tpu_torch.ops.physics_kernel import (ControlStepKernel, ModelTable, n_points,
+                                                   pack_body, pack_state, unpack_body,
                                                    unpack_diag, unpack_state)
-from humanoid_tpu_torch.physics.contact import ContactParams
+from humanoid_tpu_torch.physics import engine as teng
+from humanoid_tpu_torch.physics.contact import ContactParams, Terrain
 from humanoid_tpu_torch.physics.engine import PhysState
+from humanoid_tpu_torch.physics.kinematics import RobotTensors
 from humanoid_tpu_torch.physics.pgs import PGSParams
 from humanoid_tpu_torch.physics.urdf import load_urdf
 
@@ -97,13 +107,19 @@ def _torch_args(setup):
             torch.tensor(setup["targets"]))
 
 
-def _assert_within_kernel_bounds(pack_a, ff_a, pack_b, ff_b, weight):
+def _kernel_errors(pack_a, ff_a, pack_b, ff_b, weight):
+    """max |du|, max |base_pos| and max foot-force error over body weight."""
     du = float(np.abs(np.asarray(pack_a)[19:] - np.asarray(pack_b)[19:]).max())
     dpos = float(np.abs(np.asarray(pack_a)[0:3] - np.asarray(pack_b)[0:3]).max())
     dff = float(np.abs(np.asarray(ff_a) - np.asarray(ff_b)).max())
+    return du, dpos, dff / weight
+
+
+def _assert_within_kernel_bounds(pack_a, ff_a, pack_b, ff_b, weight):
+    du, dpos, dff = _kernel_errors(pack_a, ff_a, pack_b, ff_b, weight)
     assert du < 1e-2, du
     assert dpos < 1e-5, dpos
-    assert dff < 0.01 * weight, dff / weight
+    assert dff < 0.01, dff
 
 
 def test_control_step_matches_reference_engine(setup):
@@ -190,40 +206,259 @@ def host_build(tmp_path_factory):
     src.write_text(
         f'#include "{os.path.abspath(CSRC)}"\n'
         "extern \"C\" void host_control_step(const float* s, const float* m, const float* f,\n"
-        "    const float* t, float* so, float* d, int N, const void* table, int dec, int fr,\n"
-        "    int fp, int it) {\n"
+        "    const float* t, const float* g, const float* b, const float* pl, float* so,\n"
+        "    float* d, int N, const void* table, int dec, int fr, int fp, int it) {\n"
         "  const ModelTable& mt = *static_cast<const ModelTable*>(table);\n"
         "  Work* W = new Work;\n"
         "  for (int n = 0; n < N; ++n)\n"
-        "    control_step_env(mt, n, N, s, m, f, t, so, d, dec, fr != 0, fp != 0, it, *W);\n"
+        "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, fr != 0, fp != 0, it,\n"
+        "                     *W);\n"
         "  delete W;\n"
         "}\n"
         "extern \"C\" int host_table_bytes() { return (int)sizeof(ModelTable); }\n")
     lib = d / "libhost.so"
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
-    return ctypes.CDLL(str(lib))
+    lib = ctypes.CDLL(str(lib))
+    lib.host_control_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4
+    return lib
+
+
+def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=None, body=None,
+               planes=None):
+    """One control step of the host-compiled kernel source."""
+    n = pack.shape[1]
+    out = torch.empty_like(pack)
+    diag = torch.empty((k.n_diag, n))
+    dec, fr, fp = instance
+    ptr = [None if x is None else x.contiguous().data_ptr()
+           for x in (pack, masses, friction, targets, gains, body, planes)]
+    host_build.host_control_step(*ptr, out.data_ptr(), diag.data_ptr(), n,
+                                 ctypes.addressof(k.table), dec, int(fr), int(fp), SWEEPS)
+    return out, unpack_diag(diag, k.model)
 
 
 @pytest.mark.parametrize("instance", [(1, False, False), (10, True, True), (10, True, False),
                                       (10, False, False)])
 def test_kernel_source_matches_plain_on_host(setup, host_build, instance):
     assert host_build.host_table_bytes() == ctypes.sizeof(ModelTable)
-    k, tm = setup["kernel"], setup["tm"]
+    k = setup["kernel"]
     pack = setup["pack"].contiguous()
     masses, friction, targets = (x.contiguous() for x in _torch_args(setup))
-    out = torch.empty_like(pack)
-    diag = torch.empty((k.n_diag, N))
-    dec, fr, fp = instance
-    p = ctypes.c_void_p
-    host_build.host_control_step(
-        p(pack.data_ptr()), p(masses.data_ptr()), p(friction.data_ptr()), p(targets.data_ptr()),
-        p(out.data_ptr()), p(diag.data_ptr()), N, p(ctypes.addressof(k.table)), dec, int(fr),
-        int(fp), SWEEPS)
-    hd = unpack_diag(diag, tm)
-    b, db = k.plain(pack, masses, friction, targets, dec, fr, fp)
+    out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance)
+    b, db = k.plain(pack, masses, friction, targets, *instance)
     _assert_within_kernel_bounds(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
     np.testing.assert_allclose(hd.body_pos.numpy(), db.body_pos.numpy(), atol=1e-5)
     np.testing.assert_allclose(hd.body_quat.numpy(), db.body_quat.numpy(), atol=1e-5)
     np.testing.assert_allclose(hd.body_omega.numpy(), db.body_omega.numpy(), atol=1e-3)
     np.testing.assert_allclose(hd.tau.numpy(), db.tau.numpy(), atol=1e-2)
     np.testing.assert_allclose(hd.term_force.numpy(), db.term_force.numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the optional inputs: gains, body, planes
+
+GX, GY = 0.05, -0.05      # the ramp: h = 0.05 x - 0.05 y, one 5 mm count per 0.1 m cell
+
+
+def _random_extras(tm, seed=1, n=N):
+    """Gains and bodies drawn in the ranges of the reference's domain
+    randomization (DomainRandCfg): strength, kp and kd factors in
+    [0.8, 1.2], motor offsets in +-0.035 rad, base COM offsets, inertia
+    factors in [0.8, 1.2] applied symmetrically."""
+    rng = np.random.default_rng(seed)
+    nb = tm.nb
+    strength = np.repeat(rng.uniform(0.8, 1.2, (n, 1)), 12, axis=1)
+    kpf, kdf = rng.uniform(0.8, 1.2, (n, 12)), rng.uniform(0.8, 1.2, (n, 12))
+    offsets = rng.uniform(-0.035, 0.035, (n, 12))
+    com = np.tile(tm.com, (n, 1, 1))
+    com[:, 0] += np.c_[rng.uniform(-0.07, 0.03, n), rng.uniform(-0.03, 0.03, (n, 2))]
+    f6 = rng.uniform(0.8, 1.2, (n, nb, 6))
+    inertia = np.tile(tm.inertia, (n, 1, 1, 1)) * f6[..., (0, 1, 2, 1, 3, 4, 2, 4, 5)].reshape(
+        n, nb, 3, 3)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return dict(kp_eff=f32(KP * kpf), kd_eff=f32(KD * kdf), strength=f32(strength),
+                offsets=f32(offsets), com=f32(com), inertia=f32(inertia))
+
+
+def _gains_body(ex):
+    gains = torch.tensor(np.concatenate([ex["kp_eff"], ex["kd_eff"], ex["strength"]], axis=1))
+    return gains, pack_body(torch.tensor(ex["com"]), torch.tensor(ex["inertia"]))
+
+
+def _ramp_planes(tm, n=N):
+    P = n_points(tm)
+    return torch.tensor(np.tile([0.0, GX, GY], (n, P)), dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def ramp(setup):
+    """8 robots settled 0.3 s on the ramp (planes), then pressed 1 mm in."""
+    k = setup["kernel"]
+    pack = setup["pack"].clone()
+    pack[2] += 1e-3
+    args = _torch_args(setup)
+    planes = _ramp_planes(setup["tm"])
+    for _ in range(30):
+        pack, diag = k.plain(pack, *args, 10, True, True, planes=planes)
+    assert float(diag.foot_forces[..., 2].sum(1).min()) > 0.8 * setup["weight"]
+    pack = pack.clone()
+    pack[2] -= 1e-3
+    return pack, planes
+
+
+def test_body_rows_round_trip(setup):
+    ex = _random_extras(setup["tm"])
+    com, inertia = unpack_body(_gains_body(ex)[1], setup["tm"].nb)
+    assert torch.equal(com, torch.tensor(ex["com"]))
+    assert torch.equal(inertia, torch.tensor(ex["inertia"]))
+
+
+def test_control_step_with_gains_and_body_matches_reference_engine(setup):
+    """Plain control step with per-env gains and bodies vs
+    engine.control_step_pgs with EnvPhysParams(com, inertia) and the
+    reference env's randomized-gain torque."""
+    ex = _random_extras(setup["tm"])
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]),
+                                com=jnp.asarray(ex["com"]), inertia=jnp.asarray(ex["inertia"]))
+    tgt, lim = jnp.asarray(setup["targets"]), jnp.asarray(setup["lim"])
+
+    def torque(s):
+        tau = (jnp.asarray(ex["kp_eff"]) * (tgt - s.qj + jnp.asarray(ex["offsets"]))
+               - jnp.asarray(ex["kd_eff"]) * s.u[:, 6:]) * jnp.asarray(ex["strength"])
+        return jnp.clip(tau, -lim, lim)
+
+    step = jax.jit(lambda s: jeng.control_step_pgs(
+        setup["jm"], params, JTerrain.plane(), JContactParams(), JPGSParams(iterations=SWEEPS),
+        s, torque, 10, 0.001, freeze_mass_matrix=True))
+    js, jd = step(_jax_state(setup["pack"]))
+    gains, body = _gains_body(ex)
+    masses, friction, targets = _torch_args(setup)
+    tp, td = setup["kernel"].plain(setup["pack"], masses, friction,
+                                   targets + torch.tensor(ex["offsets"]), 10, True, False,
+                                   gains=gains, body=body)
+    jpack = np.concatenate([np.asarray(js.base_pos), np.asarray(js.base_quat),
+                            np.asarray(js.qj), np.asarray(js.u)], axis=1).T
+    _assert_within_kernel_bounds(tp, td.foot_forces, jpack, jd.foot_forces, setup["weight"])
+    np.testing.assert_allclose(td.tau.numpy(), np.asarray(jd.tau), atol=1e-2)
+    # the randomization changed the step
+    plain, _ = setup["kernel"].plain(setup["pack"], masses, friction, targets, 10, True, False)
+    assert float((plain - tp).abs().max()) > 1e-4
+
+
+def test_planes_on_a_ramp_match_reference_heightfield(setup, ramp):
+    """control_step_plain(planes) vs engine.control_step_pgs on the ramp's
+    heightfield (bilinear sampling every substep)."""
+    pack, planes = ramp
+    i = np.arange(101)[:, None]
+    j = np.arange(101)[None, :]
+    height = (0.005 * (i - j)).astype(np.float32)          # x, y in [-5, 5] m
+    jt = JTerrain(height=jnp.asarray(height), horizontal_scale=0.1, border=5.0, flat=False)
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    step = jax.jit(lambda s: jeng.control_step_pgs(
+        setup["jm"], params, jt, JContactParams(), JPGSParams(iterations=SWEEPS), s,
+        _jax_torque(setup), 10, 0.001, freeze_mass_matrix=True))
+    js, jd = step(_jax_state(pack))
+    tp, td = setup["kernel"].plain(pack, *_torch_args(setup), 10, True, False, planes=planes)
+    jpack = np.concatenate([np.asarray(js.base_pos), np.asarray(js.base_quat),
+                            np.asarray(js.qj), np.asarray(js.u)], axis=1).T
+    _assert_within_kernel_bounds(tp, td.foot_forces, jpack, jd.foot_forces, setup["weight"])
+    # on the ramp the feet push along its normal, not straight up
+    assert float(td.foot_forces[..., 0].abs().max()) > 1.0
+
+
+def test_engine_on_a_heightfield_matches_reference_engine(setup, ramp):
+    """The port's engine.control_step_pgs on a heightfield Terrain (sampled
+    at every substep, the reference's semantics) vs the reference's on the
+    same heightfield: the ramp with up to 0.5 mm of random relief per cell,
+    so that the sampled height and normal change from point to point and
+    substep to substep, while every sole corner stays in contact."""
+    pack, _ = ramp
+    rng = np.random.default_rng(3)
+    i = np.arange(101)[:, None]
+    j = np.arange(101)[None, :]
+    height = (0.005 * (i - j) + rng.uniform(-5e-4, 5e-4, (101, 101))).astype(np.float32)
+    jt = JTerrain(height=jnp.asarray(height), horizontal_scale=0.1, border=5.0, flat=False)
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    step = jax.jit(lambda s: jeng.control_step_pgs(
+        setup["jm"], params, jt, JContactParams(), JPGSParams(iterations=SWEEPS), s,
+        _jax_torque(setup), 10, 0.001, freeze_mass_matrix=True))
+    js, jd = step(_jax_state(pack))
+    masses, friction, targets = _torch_args(setup)
+    kp, kd, lim = (torch.tensor(x) for x in (KP, KD, setup["lim"]))
+
+    def torque(s):
+        return torch.clamp(kp * (targets - s.qj) - kd * s.u[:, 6:], -lim, lim)
+
+    ts, td = teng.control_step_pgs(
+        RobotTensors.from_model(setup["tm"], "cpu"), teng.EnvPhysParams(masses, friction),
+        Terrain.heightfield(height, 0.1, 5.0), ContactParams(), PGSParams(iterations=SWEEPS),
+        unpack_state(pack, 12), torque, 10, 0.001, freeze_mass_matrix=True)
+    jpack = np.concatenate([np.asarray(js.base_pos), np.asarray(js.base_quat),
+                            np.asarray(js.qj), np.asarray(js.u)], axis=1).T
+    _assert_within_kernel_bounds(pack_state(ts), td.foot_forces, jpack, jd.foot_forces,
+                                 setup["weight"])
+    np.testing.assert_allclose(td.term_force.numpy(), np.asarray(jd.term_force), atol=1e-3)
+    # every sole corner carries load
+    assert float(td.foot_forces[..., 2].min()) > 0.1 * setup["weight"]
+
+
+def _random_near_ground(tm, seed=7, n=N):
+    """A random near-ground batch (the reference's kernel-vs-XLA PGS test
+    layout) over random per-point planes with |slope| <= 0.3."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
+    phys = PhysState(f32(np.c_[rng.uniform(-0.1, 0.1, (n, 2)), rng.uniform(0.82, 0.95, n)]),
+                     f32(np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))),
+                     f32(rng.uniform(-0.2, 0.2, (n, 12))), f32(rng.uniform(-0.5, 0.5, (n, 18))))
+    P = n_points(tm)
+    g = rng.uniform(-0.2, 0.2, (n, P, 2))
+    planes = f32(np.concatenate([rng.uniform(-0.03, 0.03, (n, P, 1)), g], axis=2).reshape(n, -1))
+    targets = f32(rng.uniform(-0.3, 0.3, (n, 12)))
+    return pack_state(phys), targets, planes
+
+
+@pytest.mark.parametrize("case", ["ramp-exact", "ramp-shipping", "ramp-frozen-factor",
+                                  "random-planes-exact"])
+def test_kernel_source_with_extras_matches_plain_on_host(setup, ramp, host_build, case):
+    """The host-compiled kernel with gains, body and planes vs the plain
+    version."""
+    k = setup["kernel"]
+    masses, friction, targets = _torch_args(setup)
+    gains, body = _gains_body(_random_extras(setup["tm"]))
+    instance = {"exact": (1, False, False), "shipping": (10, True, True),
+                "factor": (10, True, False)}[case.split("-")[-1]]
+    if case.startswith("ramp"):
+        pack, planes = ramp
+    else:
+        pack, targets, planes = _random_near_ground(setup["tm"])
+    out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance, gains, body,
+                         planes)
+    b, db = k.plain(pack, masses, friction, targets, *instance, gains=gains, body=body,
+                    planes=planes)
+    _assert_within_kernel_bounds(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
+    np.testing.assert_allclose(hd.body_pos.numpy(), db.body_pos.numpy(), atol=1e-5)
+    np.testing.assert_allclose(hd.tau.numpy(), db.tau.numpy(), atol=1e-2)
+    np.testing.assert_allclose(hd.term_force.numpy(), db.term_force.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("dropped", ["gains", "body", "planes"])
+def test_bounds_catch_a_kernel_that_ignores_an_input(setup, ramp, host_build, dropped):
+    """Control for the bounds the extras are held to: the host-compiled
+    kernel with gains, body and planes (shipping instance, on the ramp)
+    against the plain version run without one of them falls outside the
+    bounds, so a kernel that ignored that input would fail them."""
+    k = setup["kernel"]
+    pack, planes = ramp
+    masses, friction, targets = _torch_args(setup)
+    gains, body = _gains_body(_random_extras(setup["tm"]))
+    extras = {"gains": gains, "body": body, "planes": planes}
+    out, hd = _host_step(host_build, k, pack, masses, friction, targets, (10, True, True),
+                         **extras)
+    b, db = k.plain(pack, masses, friction, targets, 10, True, True,
+                    **{key: v for key, v in extras.items() if key != dropped})
+    du, dpos, dff = _kernel_errors(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
+    assert du >= 1e-2 or dpos >= 1e-5 or dff >= 0.01, (du, dpos, dff)

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA control-step kernel against its
-plain PyTorch version, and one env step through each. They import nothing
-of JAX, so that they run on a machine with the card:
+"""Card-only tests of the port: the CUDA control-step kernel (without and
+with its gains, body and planes inputs) and the heightfield sampler against
+their plain PyTorch versions. They import nothing of JAX, so that they run
+on a machine with the card:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from humanoid_tpu_torch.ops.physics_kernel import ControlStepKernel, pack_state
+from humanoid_tpu_torch.ops.physics_kernel import ControlStepKernel, n_points, pack_body, pack_state
+from humanoid_tpu_torch.ops.terrain_sampler import TerrainSampler
 from humanoid_tpu_torch.physics.engine import PhysState
 from humanoid_tpu_torch.utils import registry
 
@@ -27,7 +29,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _loaded_feet(kernel, model, device):
+def _loaded_feet(kernel, model, device, planes=None):
     rng = np.random.default_rng(0)
 
     def t(x):
@@ -41,7 +43,7 @@ def _loaded_feet(kernel, model, device):
                      torch.zeros(N, model.nv, device=device))
     pack, m, f, tg = pack_state(phys), t(masses), t(rng.uniform(0.1, 2.0, N)), t(qj)
     for _ in range(30):
-        pack, _ = kernel.plain(pack, m, f, tg, 10, True, True)
+        pack, _ = kernel.plain(pack, m, f, tg, 10, True, True, planes=planes)
     pack = pack.clone()
     pack[2] -= 1e-3
     return pack, m, f, tg
@@ -81,3 +83,63 @@ def test_cuda_wrapper_checks_inputs(cuda_device):
     with pytest.raises(ValueError):
         k(pack, masses, fric, tg[:, :6], 10)
     assert k.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", [(1, False, False), (10, True, True)])
+def test_cuda_kernel_with_gains_body_planes_matches_plain(cuda_device, instance):
+    """Random per-env gains and bodies, robots pressed 1 mm into a ramp
+    (planes with gradient (0.05, -0.05))."""
+    env, _, _ = registry.make_env("humanoid_ppo", device=cuda_device)
+    m = env.model
+    k = ControlStepKernel(m, *env.physics.gains, env.physics.contact_params,
+                          env.physics.pgs_params, env.physics.dt)
+    rng = np.random.default_rng(1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=cuda_device).contiguous()
+
+    planes = t(np.tile([0.0, 0.05, -0.05], (N, n_points(m))))
+    inputs = _loaded_feet(k, m, cuda_device, planes)
+    kp, kd = env.physics.gains[:2]
+    gains = t(np.concatenate([kp * rng.uniform(0.8, 1.2, (N, m.nj)),
+                              kd * rng.uniform(0.8, 1.2, (N, m.nj)),
+                              np.repeat(rng.uniform(0.8, 1.2, (N, 1)), m.nj, axis=1)], axis=1))
+    com = np.tile(m.com, (N, 1, 1))
+    com[:, 0] += rng.uniform(-0.03, 0.03, (N, 3))
+    inertia = np.tile(m.inertia, (N, 1, 1, 1)) * 1.1
+    body = pack_body(t(com), t(inertia)).contiguous()
+    a, da = k(*inputs, *instance, gains=gains, body=body, planes=planes)
+    b, db = k.plain(*inputs, *instance, gains=gains, body=body, planes=planes)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    weight = m.total_mass * 9.81
+    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
+    assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
+    with pytest.raises(ValueError):
+        k(*inputs, *instance, gains=gains[:, :12].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_matches_plain(cuda_device):
+    """The humanoid_ppo_terrain world, points over every cell: exact."""
+    env, cfg, _ = registry.make_env("humanoid_ppo_terrain", device=cuda_device)
+    w = env.terrain_world
+    s = TerrainSampler(w.height, cfg.terrain.vertical_scale, w.horizontal_scale, w.border,
+                       device=cuda_device)
+    rng = np.random.default_rng(2)
+    base = rng.uniform(0.0, [w.num_rows * w.terrain_length, w.num_cols * w.terrain_length],
+                       (N, 2))
+    scan = torch.as_tensor(base[:, None] + rng.uniform(-1, 1, (N, 187, 2)), dtype=torch.float32,
+                           device=cuda_device).contiguous()
+    con = torch.as_tensor(base[:, None] + rng.uniform(-0.5, 0.5, (N, 9, 2)), dtype=torch.float32,
+                          device=cuda_device).contiguous()
+    a_scan, a_corners = s(scan, con)
+    b_scan, b_corners = s.plain(scan, con)
+    torch.cuda.synchronize()
+    assert s.launches == 1
+    assert torch.equal(a_scan, b_scan)
+    assert all(torch.equal(x, y) for x, y in zip(a_corners, b_corners))
+    with pytest.raises(ValueError):
+        s(scan.double(), con)

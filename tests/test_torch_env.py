@@ -44,7 +44,7 @@ def make_cfg(mod, urdf, n=N):
 
 def to_port_state(js) -> EnvState:
     def t(x, dtype=None):
-        return torch.as_tensor(np.array(x), dtype=dtype)
+        return None if x is None else torch.as_tensor(np.array(x), dtype=dtype)
 
     phys = PhysState(*(t(x) for x in js.phys))
     fields = {f: t(getattr(js, f)) for f in EnvState._fields if f not in ("phys", "common_step")}
@@ -82,6 +82,8 @@ def test_initial_state_shapes_match(tmp_path_factory):
         if f == "phys":
             for a, b in zip(js.phys, ts.phys):
                 assert tuple(a.shape) == tuple(b.shape)
+        elif getattr(js, f) is None or getattr(ts, f) is None:
+            assert getattr(js, f) is None and getattr(ts, f) is None, f
         else:
             assert tuple(getattr(js, f).shape) == tuple(getattr(ts, f).shape), f
     assert tenv.reward_names == jenv.reward_names
