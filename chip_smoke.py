@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the control-step kernel and the heightfield sampler from
-humanoid_tpu_torch/csrc with nvcc (one nvcc per source, started together),
-holds each kernel against its plain PyTorch version at 4096 envs (the
-control step without and with its gains, body and planes inputs; the
-sampler on the full humanoid_ppo_terrain world; controls show that the bounds
-fail when the plain version drops an input), trains `humanoid_ppo` and
-`humanoid_ppo_terrain` for 3 iterations each at 4096 envs through
-scripts.train.main, and times the kernels. Each phase prints one JSON line
-before the next begins; a phase that fails raises and the script exits
-non-zero. The last three lines are the card's name and power limit, the
-kernel table, and {"ok": true, "device": ...}. Without a CUDA device, or
-without the package beside it, it exits non-zero before printing any
-result.
+Builds the control-step kernel, the heightfield sampler and the batched
+Cholesky kernels from humanoid_tpu_torch/csrc with nvcc (one nvcc per
+source, started together), holds each kernel against its plain PyTorch
+version at 4096 envs (first the Cholesky factor, apply and solve on the
+settled robots' mass matrices and on random SPD matrices; then the control
+step on PGS contact without and with its gains, body and planes inputs, and
+on penalty contact, whose plain version runs the plain Cholesky; the
+sampler on the full humanoid_ppo_terrain world; controls show that the
+bounds fail when the plain version drops an input), then drives every
+physics path at 4096 envs: `humanoid_ppo`, `humanoid_ppo_terrain` and
+`humanoid_ppo_penalty` for 3 iterations each on the fused kernel, through
+scripts.train.main, and the engine path (`sim.use_pallas_substep=False`)
+for 1 iteration each of `humanoid_ppo`, `humanoid_ppo_terrain` and
+`humanoid_ppo_penalty` with an unfrozen factor, through
+registry.make_env(env_cfg=...) and make_alg_runner. Each path's kernel
+launches per iteration are checked. Then it times the kernels. Each phase
+prints one JSON line before the next begins; a phase that fails raises and
+the script exits non-zero. The last three lines are the card's name and
+power limit, the kernel table, and {"ok": true, "device": ...}. Without a
+CUDA device, or without the package beside it, it exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
@@ -37,6 +45,20 @@ PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 # the reference package's own kernel-vs-XLA bounds (tests/test_physics_kernel.py)
 TOL_DU, TOL_POS, TOL_FOOT_FRACTION = 1e-2, 1e-5, 0.01
 TOL_SAMPLER_M = 1e-6             # the sampler and its plain version read the same cells
+# the Cholesky kernels vs their plain versions, per env and relative to the
+# largest entry: the factor 1e-4; a solution max(1e-5, eps cond) with eps the
+# float32 machine epsilon: the kernel (left-looking) and the plain version
+# (right-looking) are two float32 algorithms, each within ~eps cond of the
+# exact solution, which the float64 solve gives (and the kernel is held to
+# the same bound against it)
+TOL_FACTOR, TOL_SOLVE_FLOOR, TOL_SOLVE_PER_COND = 1e-4, 1e-5, 1.1920929e-07
+# on the settled robots' mass matrices (cond ~3e3-4e3), which the main paths
+# feed, one fixed bound for all four comparisons, five times the largest
+# reading there on an H100 (the solve 7.7e-7 from the float64 one, the
+# plain version's 7.0e-7): eps cond would allow ~5e-4
+TOL_SETTLED = 4e-6
+MAX_COND = 1e5
+TIMED_LINALG = 200
 RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands on
 SAMPLER_OPS_PER_SCAN, SAMPLER_OPS_PER_CONTACT = 13, 16
 
@@ -216,9 +238,13 @@ def sampler_points(env, seed=3):
     return scan.contiguous(), con.contiguous()
 
 
-def train_phase(train, task, log_name):
-    """Train `task` at 4096 envs for ITERATIONS iterations; the wrappers are
-    new, so their counts start at 0. Returns (runner, carry, rows, peak)."""
+def train_phase(train, registry, task, iterations, log_name, sim=None):
+    """Train `task` at 4096 envs: through scripts.train.main, or, with `sim`
+    overrides of its SimCfg, through registry.make_env(env_cfg=...) and
+    make_alg_runner. The env and its wrappers are new, so every count
+    starts at 0. Returns (runner, carry, rows, peak)."""
+    import dataclasses
+
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -230,16 +256,27 @@ def train_phase(train, task, log_name):
                "value_loss": float(m.update.value_loss),
                "surrogate_loss": float(m.update.surrogate_loss),
                "kl": float(m.update.kl), "kernel_launches": m.kernel_launches,
-               "sampler_launches": m.sampler_launches}
-        emit(log_name, task=task, **row)
+               "sampler_launches": m.sampler_launches, "factor_launches": m.factor_launches,
+               "apply_launches": m.apply_launches, "solve_launches": m.solve_launches}
+        emit(log_name, task=task, sim=sim or {}, **row)
         rows.append(row)
 
-    runner, carry = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
-                                str(ITERATIONS), "--device", DEVICE], log_fn=log_fn)
+    if sim is None:
+        runner, carry = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
+                                    str(iterations), "--device", DEVICE], log_fn=log_fn)
+    else:
+        cfg, _ = registry.get_cfgs(task)
+        cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=N),
+                          sim=dataclasses.replace(cfg.sim, **sim))
+        env, _, train_cfg = registry.make_env(task, device=DEVICE, env_cfg=cfg)
+        runner = registry.make_alg_runner(env, train_cfg)
+        carry = runner.learn(iterations, log_fn=log_fn)
     return runner, carry, rows, torch.cuda.max_memory_allocated()
 
 
-def check_training(task, runner, carry, rows, env_cfg, sampler):
+def check_training(task, runner, carry, rows, env_cfg, iterations, expect):
+    """Finite losses, parameters and observations of the right shapes, and
+    exactly the expected launches of each kernel in every iteration."""
     import numpy as np
     import torch
 
@@ -248,12 +285,8 @@ def check_training(task, runner, carry, rows, env_cfg, sampler):
     params_finite = all(bool(torch.isfinite(p).all()) for p in runner.net.parameters())
     obs_finite = bool(torch.isfinite(carry.obs).all() and torch.isfinite(carry.critic_obs).all())
     shapes = [tuple(carry.obs.shape), tuple(carry.critic_obs.shape)]
-    if len(rows) != ITERATIONS or any(r["kernel_launches"] != STEPS_PER_ITERATION for r in rows):
-        raise AssertionError(f"{task}: expected {STEPS_PER_ITERATION} control-step launches "
-                             f"per iteration: {rows}")
-    if sampler and any(r["sampler_launches"] != STEPS_PER_ITERATION for r in rows):
-        raise AssertionError(f"{task}: expected {STEPS_PER_ITERATION} sampler launches per "
-                             f"iteration: {rows}")
+    if len(rows) != iterations or any(r[k] != n for r in rows for k, n in expect.items()):
+        raise AssertionError(f"{task}: expected {expect} launches per iteration: {rows}")
     if not (losses_finite and params_finite and obs_finite):
         raise AssertionError(f"{task}: training produced non-finite numbers")
     if shapes != [(N, env_cfg.env.num_observations), (N, env_cfg.env.num_privileged_obs)]:
@@ -262,14 +295,88 @@ def check_training(task, runner, carry, rows, env_cfg, sampler):
             "obs_finite": obs_finite, "obs_shapes": shapes}
 
 
+def random_spd(n, seed=12):
+    """N random SPD matrices (N, n, n) with condition numbers log-uniform in
+    [1, MAX_COND], and right-hand sides (N, n)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(N, n, n)))
+    cond = np.exp(rng.uniform(0.0, math.log(MAX_COND), N))
+    eig = np.exp(rng.uniform(0.0, 1.0, (N, n)) * np.log(cond)[:, None])
+    eig[:, 0], eig[:, -1] = 1.0, cond
+    return t32(Q * eig[:, None, :] @ np.swapaxes(Q, 1, 2)), t32(rng.normal(size=(N, n)))
+
+
+def mass_matrices(model, inputs):
+    """The CRBA mass matrices (N, nv, nv) of a state pack, and the bias
+    forces' negative as right-hand sides (N, nv): the free acceleration."""
+    from humanoid_tpu_torch.ops.physics_kernel import unpack_state
+    from humanoid_tpu_torch.physics.dynamics import assemble_mass_matrix, compute_kinematics_bias
+    from humanoid_tpu_torch.physics.kinematics import RobotTensors
+
+    st = unpack_state(inputs[0], model.nj)
+    rt = RobotTensors.from_model(model, DEVICE)
+    out = compute_kinematics_bias(rt, st.base_pos, st.base_quat, st.qj, st.u, mass=inputs[1])
+    return assemble_mass_matrix(rt, out[2], out[3]).contiguous(), (-out[5]).contiguous()
+
+
+def compare_linalg(chol, M, b, fixed=None):
+    """B3, B4 (against the plain factor) and B5 of the wrappers `chol` vs
+    their plain versions on the same inputs, per env, relative to each env's
+    largest entry; the solve also against the float64 one. The bounds:
+    TOL_FACTOR and max(TOL_SOLVE_FLOOR, TOL_SOLVE_PER_COND cond), or
+    `fixed` for all four."""
+    import torch
+
+    from humanoid_tpu_torch.ops import linalg
+
+    cond = torch.linalg.eigvalsh(M.double())
+    cond = (cond[:, -1] / cond[:, 0]).float()
+    L, Lp = chol.factor_spd_batch(M), linalg.chol_factor_unrolled(M)
+    x, xp = chol.apply_spd_batch(Lp, b), linalg.chol_apply_unrolled(Lp, b)
+    xs, xsp = chol.solve_spd_batch(M, b), linalg.chol_solve_unrolled(M, b)
+    torch.cuda.synchronize()
+    x64 = torch.linalg.solve(M.double(), b.double()[..., None])[..., 0]
+    if fixed is None:
+        tol_factor, tol = TOL_FACTOR, torch.clamp(TOL_SOLVE_PER_COND * cond, min=TOL_SOLVE_FLOOR)
+    else:
+        tol_factor, tol = fixed, torch.full_like(cond, fixed)
+    rel = {"factor": (L - Lp).abs().amax((1, 2)) / Lp.abs().amax((1, 2)),
+           "apply": (x - xp).abs().amax(1) / xp.abs().amax(1),
+           "solve": (xs - xsp).abs().amax(1) / xsp.abs().amax(1)}
+    vs64 = {name: ((y.double() - x64).abs().amax(1) / x64.abs().amax(1)).float()
+            for name, y in (("solve_kernel", xs), ("solve_plain", xsp))}
+    over = (rel["factor"] >= tol_factor) | (rel["apply"] >= tol) | (rel["solve"] >= tol) \
+        | (vs64["solve_kernel"] >= tol)
+    finite = all(bool(torch.isfinite(y).all()) for y in (L, x, xs, Lp, xp, xsp))
+    return {
+        "cond_range": [cond.min().item(), cond.max().item()],
+        "tolerance": {"factor": tol_factor, "solve": fixed if fixed is not None else
+                      f"max({TOL_SOLVE_FLOOR}, {TOL_SOLVE_PER_COND} cond)"},
+        "max_rel_err": {k: v.max().item() for k, v in rel.items()},
+        "max_rel_err_over_tol": {"factor": (rel["factor"] / tol_factor).max().item(),
+                                 "apply": (rel["apply"] / tol).max().item(),
+                                 "solve": (rel["solve"] / tol).max().item()},
+        "max_rel_err_vs_float64": {k: v.max().item() for k, v in vs64.items()},
+        "max_rel_err_vs_float64_over_tol": {k: (v / tol).max().item() for k, v in vs64.items()},
+        "max_abs_err": {"factor": (L - Lp).abs().max().item(), "apply": (x - xp).abs().max().item(),
+                        "solve": (xs - xsp).abs().max().item()},
+        "upper_zero": bool((torch.triu(L, 1) == 0).all()),
+        "envs_over_bounds": int(over.sum()), "finite": finite,
+    }
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from humanoid_tpu_torch.ops import linalg
     from humanoid_tpu_torch.ops.build import build_all
     from humanoid_tpu_torch.ops.physics_kernel import (ControlStepKernel, launch_bytes,
                                                       operations_per_env)
@@ -286,7 +393,7 @@ def main():
          cuda=torch.version.cuda)
 
     # ---- 1. build: one nvcc per source, started together ----
-    sources = ("control_step.cu", "terrain_sampler.cu")
+    sources = ("control_step.cu", "terrain_sampler.cu", "linalg.cu")
     t0 = time.perf_counter()
     built = build_all(sources)
     wall = time.perf_counter() - t0
@@ -294,7 +401,7 @@ def main():
         emit("build", source=f"humanoid_tpu_torch/csrc/{src}", nvcc_s=built[src].seconds,
              all_builds_wall_s=wall, ptxas=list(built[src].ptxas))
 
-    # ---- 2./3. control step vs plain on humanoid_ppo's instances ----
+    # ---- settled robots on the flat plane: the inputs of phases 2 and 3 ----
     env_cfg, _ = registry.get_cfgs("humanoid_ppo")
     env, _, _ = registry.make_env("humanoid_ppo", device=DEVICE)
     model, kernel = env.model, env.physics
@@ -304,6 +411,23 @@ def main():
                               kernel.dt)
     default_pos = np.asarray(env_cfg.init_state.default_joint_angles)
     settled = settle(probe, model, default_pos)
+
+    # ---- 2. the Cholesky factor, apply and solve vs plain, ahead of the
+    # control-step comparisons (whose plain version runs the plain Cholesky) ----
+    spd_M, spd_b = random_spd(model.nv)
+    crba_M, crba_b = mass_matrices(model, settled)
+    lprobe = linalg.CholeskyKernels()
+    linalg_results = {
+        "settled_mass_matrices": compare_linalg(lprobe, crba_M, crba_b, fixed=TOL_SETTLED),
+        "random_spd": compare_linalg(lprobe, spd_M, spd_b)}
+    emit("linalg_vs_plain", envs=N, n=model.nv, **linalg_results)
+    for name, r in linalg_results.items():
+        if r["envs_over_bounds"] or not r["finite"] or not r["upper_zero"]:
+            raise AssertionError(f"linalg ({name}): a kernel disagrees with its plain version: {r}")
+    linalg_err = {k: max(r["max_abs_err"][k] for r in linalg_results.values())
+                  for k in ("factor", "apply", "solve")}
+
+    # ---- 3. the control step vs plain on humanoid_ppo's instances ----
     on_flat = pressed(settled)
     sweeps = env_cfg.sim.pgs_iterations
     results = {}
@@ -372,54 +496,107 @@ def main():
         raise AssertionError(f"sampler disagrees with its plain version: {errs}")
     del env, kernel, tenv
 
-    # ---- 4. the main paths: humanoid_ppo, then humanoid_ppo_terrain ----
+    # ---- 3d. the control step's penalty instance vs plain ----
+    pprobe = ControlStepKernel(model, *probe.gains, probe.contact_params, None, probe.dt)
+    penalty = {
+        "flat_pressed_shipping": compare(pprobe, model, on_flat, 10, True, True),
+        "flat_pressed_exact": compare(pprobe, model, on_flat, 1, False, False),
+        "all_ramp_pressed_shipping": compare(pprobe, model, with_offsets(ramp_pressed), 10, True,
+                                             True, gains=gains, body=body, planes=planes),
+    }
+    emit("penalty_vs_plain", envs=N, ramp_gradient=RAMP,
+         tolerance={"du": TOL_DU, "base_pos": TOL_POS,
+                    "foot_force_over_weight": TOL_FOOT_FRACTION}, **penalty)
+    for name, r in penalty.items():
+        check_within(f"penalty {name}", r)
+    control = compare(pprobe, model, with_offsets(ramp_pressed), 10, True, True, drop="planes",
+                      gains=gains, body=body, planes=planes)
+    emit("penalty_controls", envs=N, plain_without_planes=control)
+    if within(control):
+        raise AssertionError(f"penalty: the bounds do not see the missing planes: {control}")
+    results["penalty"] = penalty["flat_pressed_shipping"]
+
+    # ---- 4. the main paths: every physics path, each with its kernels ----
+    S = STEPS_PER_ITERATION
+    D = env_cfg.control.decimation
+    zero = {"kernel_launches": 0, "sampler_launches": 0, "factor_launches": 0,
+            "apply_launches": 0, "solve_launches": 0}
+    engine_pgs = {"use_pallas_substep": False}
+    paths = [
+        ("humanoid_ppo", "humanoid_ppo", None, ITERATIONS, {"kernel_launches": S}),
+        ("humanoid_ppo_terrain", "humanoid_ppo_terrain", None, ITERATIONS,
+         {"kernel_launches": S, "sampler_launches": S}),
+        ("humanoid_ppo_penalty", "humanoid_ppo_penalty", None, ITERATIONS,
+         {"kernel_launches": S}),
+        ("humanoid_ppo engine", "humanoid_ppo", engine_pgs, 1,
+         {"factor_launches": S, "apply_launches": S * D}),
+        ("humanoid_ppo_terrain engine", "humanoid_ppo_terrain", engine_pgs, 1,
+         {"sampler_launches": S, "factor_launches": S, "apply_launches": S * D}),
+        ("humanoid_ppo_penalty engine unfrozen", "humanoid_ppo_penalty",
+         {"use_pallas_substep": False, "freeze_mass_matrix": False}, 1,
+         {"solve_launches": S * D}),
+    ]
     launches, summaries = {}, {}
-    for task, sampler in (("humanoid_ppo", False), ("humanoid_ppo_terrain", True)):
-        runner, carry, rows, peak = train_phase(train, task, "train_iteration")
+    for path, task, sim, iterations, nonzero in paths:
+        t_path = time.perf_counter()
+        runner, carry, rows, peak = train_phase(train, registry, task, iterations,
+                                                "train_iteration", sim)
         cfg, _ = registry.get_cfgs(task)
-        checks = check_training(task, runner, carry, rows, cfg, sampler)
-        launches[task] = {"control_step_kernel": runner.env.physics.launches,
-                          "terrain_sampler_kernel": (runner.env.sampler.launches
-                                                     if runner.env.sampler is not None else 0)}
+        expect = {**zero, **nonzero}
+        checks = check_training(path, runner, carry, rows, cfg, iterations, expect)
+        env_ = runner.env
+        launches[path] = {
+            "control_step_kernel": env_.physics.launches,
+            "terrain_sampler_kernel": env_.sampler.launches if env_.sampler is not None else 0,
+            **{f"chol_{k}_kernel": env_.cholesky.launches[f"chol_{k}"]
+               for k in ("factor", "apply", "solve")}}
         steady = rows[1:] if len(rows) > 1 else rows
-        summaries[task] = {
-            "iterations": len(rows), "launches": launches[task], "peak_bytes": peak,
+        summaries[path] = {
+            "task": task, "sim": sim or {}, "iterations": len(rows), "launches": launches[path],
+            "launches_per_iteration": expect, "peak_bytes": peak,
+            "wall_s": time.perf_counter() - t_path,
             "steady_env_steps_per_s": sum(r["env_steps_per_s"] for r in steady) / len(steady),
             "steady_rollout_s": sum(r["rollout_s"] for r in steady) / len(steady),
             "steady_update_s": sum(r["update_s"] for r in steady) / len(steady),
             "mean_terrain_level": float(carry.env_state.terrain_levels.float().mean()),
             **checks,
         }
-        emit("train", task=task, **summaries[task])
-        if launches[task]["control_step_kernel"] == 0 or (
-                sampler and launches[task]["terrain_sampler_kernel"] == 0):
-            raise AssertionError(f"{task}: a kernel of the path was not launched: {launches}")
-        del runner, carry
+        emit("train", path=path, **summaries[path])
+        names = {"kernel_launches": "control_step_kernel",
+                 "sampler_launches": "terrain_sampler_kernel",
+                 "factor_launches": "chol_factor_kernel", "apply_launches": "chol_apply_kernel",
+                 "solve_launches": "chol_solve_kernel"}
+        if any(launches[path][names[k]] == 0 for k in nonzero):
+            raise AssertionError(f"{path}: a kernel of the path was not launched: {launches}")
+        del runner, carry, env_
 
     # ---- 5. kernel times against their bounds ----
     timing = {}
     pack, masses, friction, targets = settled
     rpack, rmasses, rfriction, rtargets = with_offsets(on_ramp)
     instances = {
-        "exact": ((pack, masses, friction, targets), (1, False, False), {}),
-        "shipping": ((pack, masses, friction, targets), (10, True, True), {}),
-        "extras": ((rpack, rmasses, rfriction, rtargets), (10, True, True),
+        "exact": (probe, (pack, masses, friction, targets), (1, False, False), {}),
+        "shipping": (probe, (pack, masses, friction, targets), (10, True, True), {}),
+        "extras": (probe, (rpack, rmasses, rfriction, rtargets), (10, True, True),
                    {"gains": gains, "body": body, "planes": planes}),
+        "penalty": (pprobe, (pack, masses, friction, targets), (10, True, True), {}),
     }
-    for name, (inputs, args, kw) in instances.items():
+    for name, (k, inputs, args, kw) in instances.items():
         def run_kernel():
-            probe(*inputs, *args, **kw)
+            k(*inputs, *args, **kw)
 
         def run_plain():
-            probe.plain(*inputs, *args, **kw)
+            k.plain(*inputs, *args, **kw)
 
         for _ in range(3):
             run_kernel()
         ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
         run_plain()
         plain_ms = cuda_ms(run_plain, 3)
-        flags = {k: k in kw for k in ("gains", "body", "planes")}
-        ops = operations_per_env(model, args[0], args[1], args[2], sweeps, **flags) * N
+        flags = {f: f in kw for f in ("gains", "body", "planes")}
+        pgs = k.pgs_params is not None
+        ops = operations_per_env(model, args[0], args[1], args[2], sweeps if pgs else 0,
+                                 pgs=pgs, **flags) * N
         timing[name] = {"ms": ms, "plain_ms": plain_ms,
                         **bound(ops, launch_bytes(model, N, **flags))}
         emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
@@ -441,18 +618,60 @@ def main():
                          **bound(SAMPLER_OPS_PER_SCAN * n_scan + SAMPLER_OPS_PER_CONTACT * n_con,
                                  sample_bytes(n_scan, n_con, cells))}
     emit("sampler_time", launches_timed=TIMED_SAMPLES, **timing["sampler"])
+
+    # the Cholesky kernels on the settled robots' mass matrices, beside the
+    # plain versions and the library calls (timed here only; the port never
+    # calls them)
+    n = model.nv
+    L_crba = linalg.chol_factor_unrolled(crba_M)
+    calls = {
+        "chol_factor": (lambda: lprobe.factor_spd_batch(crba_M),
+                        lambda: linalg.chol_factor_unrolled(crba_M),
+                        lambda: torch.linalg.cholesky_ex(crba_M), "torch.linalg.cholesky_ex"),
+        "chol_apply": (lambda: lprobe.apply_spd_batch(L_crba, crba_b),
+                       lambda: linalg.chol_apply_unrolled(L_crba, crba_b),
+                       lambda: torch.cholesky_solve(crba_b[..., None], L_crba),
+                       "torch.cholesky_solve"),
+        "chol_solve": (lambda: lprobe.solve_spd_batch(crba_M, crba_b),
+                       lambda: linalg.chol_solve_unrolled(crba_M, crba_b),
+                       lambda: torch.cholesky_solve(crba_b[..., None],
+                                                    torch.linalg.cholesky_ex(crba_M).L),
+                       "torch.linalg.cholesky_ex then torch.cholesky_solve"),
+    }
+    for name, (run_k, run_p, run_lib, lib_name) in calls.items():
+        for fn in (run_k, run_p, run_lib):
+            fn()
+        timing[name] = {"ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
+                        "library_ms": cuda_ms(run_lib, TIMED_LINALG), "library": lib_name,
+                        **bound(linalg.operations_per_env(name, n) * N,
+                                linalg.bytes_per_env(name, n) * N)}
+        emit(f"{name}_time", launches_timed=TIMED_LINALG, n=n, **timing[name])
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit("paths_wall_s", **{p: v["wall_s"] for p, v in summaries.items()},
+         script_s=time.perf_counter() - t_start)
 
     # ---- 6. the table and the last line ----
     print(smi, flush=True)
 
     def row(name, result, t, **more):
         return {"max_abs_err": result, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-                "instance": name, **more}
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), "instance": name, **more}
 
-    cs_launches = {task: v["control_step_kernel"] for task, v in launches.items()}
+    def by_path(kernel):
+        return {p: v[kernel] for p, v in launches.items()}
+
+    cs_launches = by_path("control_step_kernel")
     ship = timing["shipping"]
+    linalg_rows = [
+        {"name": f"{name}_kernel", "route": "cuda", "source": "humanoid_tpu_torch/csrc/linalg.cu",
+         "replaces": f"humanoid_tpu/ops/linalg.py:{line}",
+         "launches": sum(by_path(f"{name}_kernel").values()),
+         "launches_by_path": by_path(f"{name}_kernel"),
+         **row(f"n={n}, {N} envs", linalg_err[key], timing[name],
+               library=timing[name]["library"])}
+        for name, key, line in (("chol_factor", "factor", 144), ("chol_apply", "apply", 165),
+                                ("chol_solve", "solve", 108))]
     print(json.dumps({"kernels": [
         {
             "name": "control_step_kernel", "route": "cuda",
@@ -468,15 +687,20 @@ def main():
                 f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps} gains body planes",
                 results["extras"]["max_abs_err"], timing["extras"],
                 launches=cs_launches["humanoid_ppo_terrain"]),
+            "penalty_instance": row(
+                "pgs=0 decimation=10 freeze=1", results["penalty"]["max_abs_err"],
+                timing["penalty"], launches=cs_launches["humanoid_ppo_penalty"],
+                replaces="humanoid_tpu/ops/physics_kernel.py:719"),
         },
         {
             "name": "terrain_sampler_kernel", "route": "cuda",
             "source": "humanoid_tpu_torch/csrc/terrain_sampler.cu",
             "replaces": "humanoid_tpu/ops/terrain_kernel.py:114",
-            "launches": launches["humanoid_ppo_terrain"]["terrain_sampler_kernel"],
-            "launches_by_path": {t: v["terrain_sampler_kernel"] for t, v in launches.items()},
+            "launches": sum(by_path("terrain_sampler_kernel").values()),
+            "launches_by_path": by_path("terrain_sampler_kernel"),
             **row("187 scan + 9 contact points per env", sampler_err, timing["sampler"]),
         },
+        *linalg_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

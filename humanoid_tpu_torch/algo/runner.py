@@ -40,6 +40,9 @@ class IterationMetrics(NamedTuple):
     update_s: float
     kernel_launches: int           # control-step kernel launches this iteration
     sampler_launches: int          # heightfield sampler launches this iteration
+    factor_launches: int           # Cholesky factor kernel launches (engine path)
+    apply_launches: int            # Cholesky apply kernel launches (engine path)
+    solve_launches: int            # Cholesky solve kernel launches (engine path)
 
 
 class OnPolicyRunner:
@@ -95,6 +98,7 @@ class OnPolicyRunner:
         t0 = time.perf_counter()
         launches0 = env.physics.launches
         sampler0 = self._sampler_launches()
+        chol0 = dict(env.cholesky.launches)
 
         es = carry.env_state
         ratio = env.cfg.rewards.course_ratio
@@ -162,6 +166,8 @@ class OnPolicyRunner:
             rew_terms_mean=rew_terms / T, rollout_s=t1 - t0, update_s=t2 - t1,
             kernel_launches=env.physics.launches - launches0,
             sampler_launches=self._sampler_launches() - sampler0,
+            **{f"{k}_launches": env.cholesky.launches[f"chol_{k}"] - chol0[f"chol_{k}"]
+               for k in ("factor", "apply", "solve")},
         )
         return IterationCarry(env_state=es, obs=obs, critic_obs=cobs), metrics
 

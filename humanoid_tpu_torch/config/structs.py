@@ -75,7 +75,7 @@ class SimCfg:
     contact_cn: float = 80.0
     contact_v_reg: float = 0.05
     freeze_mass_matrix: bool = True
-    use_pallas_substep: bool = True   # kept for config parity; unused
+    use_pallas_substep: bool = True   # the fused control-step kernel; False: the engine path
     contact_model: str = "penalty"
     pgs_iterations: int = 8
     pgs_erp: float = 0.024

@@ -1,12 +1,19 @@
 // One 100 Hz control step of the humanoid physics as one CUDA kernel.
 //
 // Replaces the TPU kernel humanoid_tpu/ops/physics_kernel.py::_control_kernel
-// (built by build_control_fn) on its PGS path: block-PGS foot contact from a
-// cold start and penalty termination spheres. `decimation`, `freeze` (factor
-// the mass matrix once, from the entry configuration), `freeze_prep` (build
-// the contact frames, Jacobian rows and Delassus operator once, with the
-// frozen factor) and the sweep count are runtime arguments: decimation=1,
-// freeze=0 is the exact substep of _substep_kernel.
+// (built by build_control_fn) on both of its contact models, chosen by the
+// runtime flag `pgs`:
+//   pgs = 1: block-PGS foot contact from a cold start and penalty
+//            termination spheres (the kernel built with pgs_params);
+//   pgs = 0: the penalty model on every contact point, sole corners and
+//            termination spheres alike, summed into the generalized force,
+//            then one solve with the mass-matrix factor (pgs_params=None:
+//            _contact, _chol_solve and _integrate).
+// `decimation`, `freeze` (factor the mass matrix once, from the entry
+// configuration), `freeze_prep` (PGS only: build the contact frames,
+// Jacobian rows and Delassus operator once, with the frozen factor) and the
+// sweep count are runtime arguments: decimation=1, freeze=0 is the exact
+// substep of _substep_kernel.
 //
 // Three optional per-env inputs, each (N, rows) env-major and a null
 // pointer when absent, with the reference's row order (_extra_rows):
@@ -19,16 +26,18 @@
 //   planes (3 P):  [c0, gx, gy] per contact point, sole corners then
 //          termination spheres: the ground height c0 + gx x + gy y, held for
 //          the control step. It sets the gap along the plane normal and the
-//          normal-aligned frame of every PGS row, and the normal of the
-//          sphere penalty force. Without it the ground is the plane z = 0.
+//          normal-aligned frame of every PGS row, and the normal of every
+//          penalty force. Without it the ground is the plane z = 0.
 // The rows are read from global memory where they are used.
 //
 // Each substep: PD torque, forward kinematics, joint screws, spatial
 // inertias, the velocity/bias recursion, the CRBA mass matrix and its
-// Cholesky factor (unless frozen), the penalty termination spheres, the free
-// velocity, the contact prep (unless frozen), the PGS sweeps, and
-// semi-implicit Euler. State stays in the thread between substeps; the
-// kernel writes the state and the last substep's diagnostics.
+// Cholesky factor (unless frozen), the penalty forces (the termination
+// spheres; with pgs = 0 the sole corners too), then with pgs = 1 the free
+// velocity, the contact prep (unless frozen) and the PGS sweeps, with
+// pgs = 0 the acceleration, and semi-implicit Euler. State stays in the
+// thread between substeps; the kernel writes the state and the last
+// substep's diagnostics.
 //
 // Design: one thread per env. The robot is data, not code: the wrapper
 // packs a ModelTable (topology, joint frames, inertias, gains, contact
@@ -36,10 +45,10 @@
 // this source is generic in the robot and its outer loops stay loops.
 // Per-thread arrays are sized at compile time for nj <= 18.
 //
-// What bounds it: the work is a few hundred thousand dependent fp32
-// operations per env and control step against ~740 bytes moved per env
-// (~1,700 with the gains, body and planes inputs), so
-// the operation count sets the bound. At the shipping 4096 envs one thread
+// What bounds it: the work is ~90,000 (penalty) to ~230,000 (PGS)
+// dependent fp32 operations per env and control step against ~740 bytes
+// moved per env (~1,700 with the gains, body and planes inputs), so the
+// operation count sets the bound. At the shipping 4096 envs one thread
 // per env fills about 1.5% of the card's resident thread slots (132 SMs x
 // 2048), and the per-thread arrays live in local memory: the kernel is
 // latency-bound far above that bound. A warp or a few threads per env is
@@ -394,12 +403,68 @@ HD void pgs_prepare(const ModelTable& m, const float* planes, Work& W) {
   }
 }
 
+// Penalty force f on world point p of body b (spring-damper normal force,
+// regularized Coulomb friction) against the plane pl, or the plane z = 0
+// with a vertical force when pl is null; adds its generalized force to
+// W.rhs and returns the normal force.
+HD float penalty_point(const ModelTable& m, Work& W, int b, const float p[3], const float* pl,
+                       float mu, float f[3]) {
+  float rel[3], wr[3], vl[3], nm[3];
+  for (int i = 0; i < 3; ++i) rel[i] = p[i] - W.pos[0][i];
+  cross3(W.v[b], rel, wr);
+  for (int i = 0; i < 3; ++i) vl[i] = W.v[b][3 + i] + wr[i];
+  float fn;
+  if (pl) {
+    // normal-aligned penalty against the point's plane
+    float nrm[3], vt[3];
+    const float inv_l = plane_normal(pl, nrm);
+    const float phi = (p[2] - (pl[0] + pl[1] * p[0] + pl[2] * p[1])) * inv_l;
+    const float pen = phi < 0.0f ? 1.0f : 0.0f;
+    const float vn = dot3(vl, nrm);
+    fn = fmaxf(0.0f, -m.kn * phi - m.cn * vn) * pen;
+    for (int i = 0; i < 3; ++i) vt[i] = vl[i] - vn * nrm[i];
+    const float speed = sqrtf(dot3(vt, vt) + m.v_reg * m.v_reg);
+    const float scale = mu * fn / speed;
+    for (int i = 0; i < 3; ++i) f[i] = fn * nrm[i] - scale * vt[i];
+  } else {
+    const float pen = p[2] < 0.0f ? 1.0f : 0.0f;
+    fn = fmaxf(0.0f, -m.kn * p[2] - m.cn * vl[2]) * pen;
+    const float speed = sqrtf(vl[0] * vl[0] + vl[1] * vl[1] + m.v_reg * m.v_reg);
+    const float scale = mu * fn / speed;
+    f[0] = -scale * vl[0]; f[1] = -scale * vl[1]; f[2] = fn;
+  }
+  cross3(rel, f, nm);
+  for (int i = 0; i < 3; ++i) { W.rhs[i] += nm[i]; W.rhs[3 + i] += f[i]; }
+  const unsigned int anc = m.anc[b];
+  for (int k = 0; k < m.nj; ++k)
+    if ((anc >> k) & 1u) W.rhs[6 + k] += dot3(nm, W.w[k]) + dot3(f, W.lin[k]);
+  return fn;
+}
+
 HD inline float amat(const Work& W, int i, int j) {
   return i >= j ? W.A[tri(i, j)] : W.A[tri(j, i)];
 }
 
-// One substep from the thread's state; `prep` rebuilds the contact rows and
-// Delassus operator, `factor` the mass-matrix factor.
+// The new velocity unew into the state: position, the quaternion
+// exponential map, joint angles.
+HD void integrate(int nj, float dt, const float* unew, float bp[3], float bq[4], float* qj,
+                  float* u) {
+  const int nv = nj + 6;
+  for (int i = 0; i < 3; ++i) bp[i] += dt * unew[3 + i];
+  float om[3] = {unew[0] * dt, unew[1] * dt, unew[2] * dt};
+  const float ang = sqrtf(dot3(om, om));
+  const float half = 0.5f * ang;
+  const bool small = ang < 1e-8f;
+  const float kfac = small ? 0.5f : sinf(half) / ang;
+  const float dq[4] = {cosf(half), om[0] * kfac, om[1] * kfac, om[2] * kfac};
+  float qn[4];
+  qmul(dq, bq, qn);
+  const float nrm = rsqrtf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3] + 1e-12f);
+  for (int i = 0; i < 4; ++i) bq[i] = qn[i] * nrm;
+  for (int k = 0; k < nj; ++k) qj[k] += dt * unew[6 + k];
+  for (int i = 0; i < nv; ++i) u[i] = unew[i];
+}
+
 // This env's optional inputs (see the top of the file), or null pointers.
 struct EnvExtras {
   const float* gains;
@@ -407,6 +472,10 @@ struct EnvExtras {
   const float* planes;
 };
 
+// One substep from the thread's state, with PGS or penalty foot contact;
+// `prep` rebuilds the contact rows and Delassus operator, `factor` the
+// mass-matrix factor.
+template <bool PGS>
 HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
                 const float* mass, float mu, const float* targets, const EnvExtras& x,
                 bool factor, bool prep, int iterations, Work& W) {
@@ -424,48 +493,39 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
   vel_bias(m, u, W);
   if (factor) crba_chol(m, W);
 
-  // penalty termination spheres, then the free velocity
+  // penalty forces: the sole corners (penalty model), then the termination
+  // spheres, into the generalized force
   for (int i = 0; i < nv; ++i) W.rhs[i] = 0.0f;
-  const float* A0 = W.pos[0];
-  for (int s = 0; s < m.n_term; ++s) {
-    const int b = m.term_body[s];
-    float p[3], rel[3], wr[3], vl[3], f[3], nm[3];
-    point_world(W, b, m.term_off[s], p);
-    p[2] -= m.term_rad[s];
-    for (int i = 0; i < 3; ++i) rel[i] = p[i] - A0[i];
-    cross3(W.v[b], rel, wr);
-    for (int i = 0; i < 3; ++i) vl[i] = W.v[b][3 + i] + wr[i];
-    float fn;
-    if (x.planes) {
-      // normal-aligned penalty against the sphere's plane
-      const float* pl = x.planes + 3 * (K + s);
-      float nrm[3], vt[3];
-      const float inv_l = plane_normal(pl, nrm);
-      const float phi = (p[2] - (pl[0] + pl[1] * p[0] + pl[2] * p[1])) * inv_l;
-      const float pen = phi < 0.0f ? 1.0f : 0.0f;
-      const float vn = dot3(vl, nrm);
-      fn = fmaxf(0.0f, -m.kn * phi - m.cn * vn) * pen;
-      for (int i = 0; i < 3; ++i) vt[i] = vl[i] - vn * nrm[i];
-      const float speed = sqrtf(dot3(vt, vt) + m.v_reg * m.v_reg);
-      const float scale = mu * fn / speed;
-      for (int i = 0; i < 3; ++i) f[i] = fn * nrm[i] - scale * vt[i];
-    } else {
-      const float pen = p[2] < 0.0f ? 1.0f : 0.0f;
-      fn = fmaxf(0.0f, -m.kn * p[2] - m.cn * vl[2]) * pen;
-      const float speed = sqrtf(vl[0] * vl[0] + vl[1] * vl[1] + m.v_reg * m.v_reg);
-      const float scale = mu * fn / speed;
-      f[0] = -scale * vl[0]; f[1] = -scale * vl[1]; f[2] = fn;
+  if (!PGS) {
+    for (int f = 0; f < m.n_feet; ++f)
+      for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
+    for (int c = 0; c < K; ++c) {
+      float p[3], f[3];
+      point_world(W, m.fpt_body[c], m.fpt_off[c], p);
+      penalty_point(m, W, m.fpt_body[c], p, x.planes ? x.planes + 3 * c : nullptr, mu, f);
+      for (int i = 0; i < 3; ++i) W.foot_f[m.fpt_foot[c]][i] += f[i];
     }
-    W.term_f[s] = fn;
-    cross3(rel, f, nm);
-    for (int i = 0; i < 3; ++i) { W.rhs[i] += nm[i]; W.rhs[3 + i] += f[i]; }
-    const unsigned int anc = m.anc[b];
-    for (int k = 0; k < nj; ++k)
-      if ((anc >> k) & 1u) W.rhs[6 + k] += dot3(nm, W.w[k]) + dot3(f, W.lin[k]);
+  }
+  for (int s = 0; s < m.n_term; ++s) {
+    float p[3], f[3];
+    point_world(W, m.term_body[s], m.term_off[s], p);
+    p[2] -= m.term_rad[s];
+    W.term_f[s] = penalty_point(m, W, m.term_body[s], p,
+                                x.planes ? x.planes + 3 * (K + s) : nullptr, mu, f);
   }
   for (int k = 0; k < nj; ++k) W.rhs[6 + k] += W.tau[k];
   for (int i = 0; i < nv; ++i) W.rhs[i] -= W.C[i];
   chol_solve(W, nv, W.rhs, W.tmp);
+  float corr[3], unew[MAX_NV];
+  cross3(u, u + 3, corr);
+  if (!PGS) {
+    // spatial -> conventional acceleration of the base origin with the old
+    // velocity, then semi-implicit Euler
+    for (int i = 0; i < 3; ++i) W.tmp[3 + i] += corr[i];
+    for (int i = 0; i < nv; ++i) unew[i] = u[i] + dt * W.tmp[i];
+    integrate(nj, dt, unew, bp, bq, qj, u);
+    return;
+  }
   for (int i = 0; i < nv; ++i) W.ufree[i] = u[i] + dt * W.tmp[i];
 
   if (prep) pgs_prepare(m, x.planes, W);
@@ -539,34 +599,21 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
   }
 
   // integrate: spatial -> conventional correction with the old velocity,
-  // then semi-implicit Euler and the quaternion exponential map
-  float corr[3], unew[MAX_NV];
-  cross3(u, u + 3, corr);
+  // then semi-implicit Euler
   for (int i = 0; i < nv; ++i) unew[i] = W.ufree[i] + W.tmp[i];
   for (int i = 0; i < 3; ++i) unew[3 + i] += dt * corr[i];
-  for (int i = 0; i < 3; ++i) bp[i] += dt * unew[3 + i];
-  float om[3] = {unew[0] * dt, unew[1] * dt, unew[2] * dt};
-  const float ang = sqrtf(dot3(om, om));
-  const float half = 0.5f * ang;
-  const bool small = ang < 1e-8f;
-  const float kfac = small ? 0.5f : sinf(half) / ang;
-  const float dq[4] = {cosf(half), om[0] * kfac, om[1] * kfac, om[2] * kfac};
-  float qn[4];
-  qmul(dq, bq, qn);
-  const float nrm = rsqrtf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3] + 1e-12f);
-  for (int i = 0; i < 4; ++i) bq[i] = qn[i] * nrm;
-  for (int k = 0; k < nj; ++k) qj[k] += dt * unew[6 + k];
-  for (int i = 0; i < nv; ++i) u[i] = unew[i];
+  integrate(nj, dt, unew, bp, bq, qj, u);
 }
 
 // A whole control step for env n. State rows: [pos 3, quat 4, qj nj, u nv];
 // diag rows: body pos (3 nb), body quat (4 nb), body omega (3 nb), foot
 // forces (3 n_feet), termination forces (n_term), torques (nj).
-HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
-                         const float* masses, const float* friction, const float* targets,
-                         const float* gains, const float* body, const float* planes,
-                         float* state_out, float* diag, int decimation, bool freeze,
-                         bool freeze_prep, int iterations, Work& W) {
+template <bool PGS>
+HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
+                          const float* masses, const float* friction, const float* targets,
+                          const float* gains, const float* body, const float* planes,
+                          float* state_out, float* diag, int decimation, bool freeze,
+                          bool freeze_prep, int iterations, Work& W) {
   const int nj = m.nj, nb = nj + 1, nv = nj + 6;
   const EnvExtras x{gains ? gains + static_cast<long long>(n) * 3 * nj : nullptr,
                     body ? body + static_cast<long long>(n) * 9 * nb : nullptr,
@@ -581,14 +628,14 @@ HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
   for (int k = 0; k < nj; ++k) tgt[k] = targets[n * nj + k];
   const float mu = friction[n];
 
-  const bool frozen_prep = freeze && freeze_prep;
+  const bool frozen_prep = PGS && freeze && freeze_prep;
   if (freeze) {
     kinematics(m, bp, bq, qj, mass, x.body, W);
     crba_chol(m, W);
     if (frozen_prep) pgs_prepare(m, x.planes, W);
   }
   for (int s = 0; s < decimation; ++s)
-    substep(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, !frozen_prep, iterations, W);
+    substep<PGS>(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, PGS && !frozen_prep, iterations, W);
 
   int row = 0;
   for (int i = 0; i < 3; ++i) state_out[(row++) * N + n] = bp[i];
@@ -608,6 +655,22 @@ HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
   for (int k = 0; k < nj; ++k) diag[(row++) * N + n] = W.tau[k];
 }
 
+// The contact model is a template argument, so that each instance carries
+// only its own code: with the flag tested inside the substep, the PGS
+// instance ran slower than before the penalty path existed (PERF.md).
+HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
+                         const float* masses, const float* friction, const float* targets,
+                         const float* gains, const float* body, const float* planes,
+                         float* state_out, float* diag, int decimation, bool pgs,
+                         bool freeze, bool freeze_prep, int iterations, Work& W) {
+  if (pgs)
+    control_step_impl<true>(m, n, N, state, masses, friction, targets, gains, body, planes,
+                            state_out, diag, decimation, freeze, freeze_prep, iterations, W);
+  else
+    control_step_impl<false>(m, n, N, state, masses, friction, targets, gains, body, planes,
+                             state_out, diag, decimation, freeze, freeze_prep, iterations, W);
+}
+
 #ifdef __CUDACC__
 
 #define THREADS 32  // one warp per block spreads 4096 envs over 128 SMs
@@ -618,8 +681,8 @@ control_step_kernel(const float* __restrict__ state, const float* __restrict__ m
                     const float* __restrict__ gains, const float* __restrict__ body,
                     const float* __restrict__ planes,
                     float* __restrict__ state_out, float* __restrict__ diag, int N,
-                    const ModelTable* __restrict__ table, int decimation, int freeze,
-                    int freeze_prep, int iterations) {
+                    const ModelTable* __restrict__ table, int decimation, int pgs,
+                    int freeze, int freeze_prep, int iterations) {
   __shared__ ModelTable sm;
   const int words = sizeof(ModelTable) / sizeof(int);
   for (int i = threadIdx.x; i < words; i += blockDim.x)
@@ -629,19 +692,19 @@ control_step_kernel(const float* __restrict__ state, const float* __restrict__ m
   if (n >= N) return;
   Work W;
   control_step_env(sm, n, N, state, masses, friction, targets, gains, body, planes, state_out,
-                   diag, decimation, freeze != 0, freeze_prep != 0, iterations, W);
+                   diag, decimation, pgs != 0, freeze != 0, freeze_prep != 0, iterations, W);
 }
 
 extern "C" int control_step_launch(const float* state, const float* masses,
                                    const float* friction, const float* targets,
                                    const float* gains, const float* body, const float* planes,
                                    float* state_out, float* diag, int N, const void* table,
-                                   int decimation, int freeze, int freeze_prep, int iterations,
-                                   void* stream) {
+                                   int decimation, int pgs, int freeze, int freeze_prep,
+                                   int iterations, void* stream) {
   const int blocks = (N + THREADS - 1) / THREADS;
   control_step_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       state, masses, friction, targets, gains, body, planes, state_out, diag, N,
-      static_cast<const ModelTable*>(table), decimation, freeze, freeze_prep, iterations);
+      static_cast<const ModelTable*>(table), decimation, pgs, freeze, freeze_prep, iterations);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,31 @@
 """XBot-L walking task on batched torch tensors: port of the reference
-package's env/xbotl.py on its PGS path, on flat ground or a heightfield,
-with the reference's domain randomizations (friction, masses, COM and
-inertia, motor strength, offset and gains, action lag), the terrain
-curriculum and the height scan.
+package's env/xbotl.py with both contact models (block-PGS and penalty), on
+flat ground or a heightfield, with the reference's domain randomizations
+(friction, masses, COM and inertia, motor strength, offset and gains,
+action lag), the terrain curriculum and the height scan.
 
 One `step` over an explicit EnvState, batched over envs, with the masked
-auto-reset inside it. The physics goes through ControlStepKernel and, on a
-heightfield, the height scan and the next step's contact planes through
-TerrainSampler: the CUDA kernels for state on the card, their plain
-PyTorch versions for state on the CPU. On a heightfield the ground of a
-control step is one plane per contact point, sampled at its entry position
-(the reference's kernel semantics). Randomness comes from an explicit
-torch.Generator on the env's device.
+auto-reset inside it. Randomness comes from an explicit torch.Generator on
+the env's device. The physics takes one of the reference's two paths, by
+`cfg.sim.use_pallas_substep`:
+
+- on (the default): the fused control step, ControlStepKernel, with PGS or
+  penalty contact. On a heightfield the ground of a control step is one
+  plane per contact point, sampled at its entry position by TerrainSampler
+  (the reference's kernel semantics), and `pgs_freeze_prep` is honoured.
+- off: the reference's XLA engine path, physics/engine.py's
+  control_step_pgs or control_step_batch, whose factor and solves are the
+  CUDA kernels of ops/linalg.py (the env's `cholesky`). The heightfield is sampled at every
+  substep, the PGS contact prep is built every substep from a cold start
+  (the reference ignores `pgs_freeze_prep` there), and the torque is the
+  reference's own function of the substep's state.
+
+The reference also takes its XLA path when num_envs is not a multiple of
+128 or the backend is not a TPU: both are limits of the TPU's tiles, which
+the CUDA kernel does not have, so the port dispatches on the flag alone.
+Each kernel runs on the card for state on the card and as its plain
+PyTorch version for state on the CPU; the height scan always comes from
+TerrainSampler (equal to the reference's gather).
 
 Step pipeline (ordering of the reference): action delay-mix + noise + clip
 -> action lag -> decimated PD/physics -> episode counters -> base
@@ -29,10 +43,11 @@ import torch
 
 from ..assets import load_robot
 from ..config.structs import XBotLCfg
+from ..ops.linalg import CholeskyKernels
 from ..ops.physics_kernel import ControlStepKernel, pack_body, pack_state, unpack_state
 from ..ops.terrain_sampler import TerrainSampler
 from ..physics.contact import ContactParams, Terrain
-from ..physics.engine import PhysState
+from ..physics.engine import EnvPhysParams, PhysState, control_step_batch, control_step_pgs
 from ..physics.kinematics import RobotTensors, fk
 from ..physics.pgs import PGSParams
 from ..physics.spatial import (quat_apply_yaw, quat_rotate, quat_rotate_inverse,
@@ -93,7 +108,6 @@ def _unported(cfg: XBotLCfg):
     """Config features of the reference env that the port does not have yet."""
     c = cfg.commands
     checks = {
-        "sim.contact_model != 'pgs'": cfg.sim.contact_model != "pgs",
         "sim.pgs_warm_start": cfg.sim.pgs_warm_start,
         "commands.sw_switch": c.sw_switch,
         "commands.curriculum": c.curriculum,
@@ -126,6 +140,8 @@ class XBotLEnv:
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        if cfg.sim.contact_model not in ("penalty", "pgs"):
+            raise ValueError(f"unknown contact_model {cfg.sim.contact_model!r} (penalty | pgs)")
         if cfg.terrain.mesh_type not in ("plane", "heightfield", "trimesh"):
             raise ValueError(f"unknown terrain mesh_type {cfg.terrain.mesh_type!r}")
         if (cfg.terrain.mesh_type != "plane") != (terrain_world is not None):
@@ -148,13 +164,17 @@ class XBotLEnv:
         kd = np.asarray(cfg.control.damping, dtype=np.float32)
         torque_limits = (m.dof_effort * cfg.safety.torque_limit).astype(np.float32)
         s = cfg.sim
-        self.physics = ControlStepKernel(
-            m, kp, kd, torque_limits,
-            ContactParams(kn=s.contact_kn, cn=s.contact_cn, v_reg=s.contact_v_reg),
-            PGSParams(iterations=s.pgs_iterations, erp=s.pgs_erp, cfm_ratio=s.pgs_cfm,
-                      slop=s.pgs_slop),
-            s.dt,
-        )
+        self.contact_params = ContactParams(kn=s.contact_kn, cn=s.contact_cn,
+                                            v_reg=s.contact_v_reg)
+        self.pgs_params = (PGSParams(iterations=s.pgs_iterations, erp=s.pgs_erp,
+                                     cfm_ratio=s.pgs_cfm, slop=s.pgs_slop)
+                           if s.contact_model == "pgs" else None)
+        # the fused control step; off, the engine path (it then counts no
+        # launch) with the Cholesky kernels (they count none on the kernel path)
+        self.use_kernel = s.use_pallas_substep
+        self.physics = ControlStepKernel(m, kp, kd, torque_limits, self.contact_params,
+                                         self.pgs_params, s.dt)
+        self.cholesky = CholeskyKernels()
         obs_scales = cfg.normalization.obs_scales
         self.commands_scale = t([obs_scales.lin_vel, obs_scales.lin_vel, obs_scales.ang_vel])
         self.reward_names, self.reward_fns, reward_scales = build_reward_table(cfg.rewards, self.dt)
@@ -176,6 +196,8 @@ class XBotLEnv:
         self.terrain_world = terrain_world
         self.custom_origins = terrain_world is not None
         self.sampler = None
+        # the kernel's ground on a heightfield: per-point planes carried in the state
+        self.kernel_planes = self.use_kernel and self.custom_origins
         if self.custom_origins:
             self.terrain_origins = t(terrain_world.env_origins)      # (rows, cols, 3)
             self.max_terrain_level = terrain_world.num_rows
@@ -206,7 +228,7 @@ class XBotLEnv:
                             or dr.randomize_kp_factor or dr.randomize_kd_factor)
         self.body_rand_on = dr.randomize_base_com or dr.randomize_inertia
         self.dof_rand_interval = int(np.ceil(dr.dof_rand_interval_s / self.dt))
-        self.kp, self.kd = t(kp), t(kd)
+        self.kp, self.kd, self.torque_limits = t(kp), t(kd), t(torque_limits)
         self.resample_steps = int(cfg.commands.resampling_time / self.dt)
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.max_episode_length = cfg.max_episode_length
@@ -397,6 +419,53 @@ class XBotLEnv:
         origins = cells[(levels * self.terrain_world.num_cols + state.terrain_types).long()]
         return levels, torch.where(reset_buf[:, None], origins, state.env_origins)
 
+    def _kernel_step(self, state: EnvState, targets):
+        """The control step through ControlStepKernel, with the per-env gains
+        and bodies and the contact planes as its optional inputs."""
+        gains = body = None
+        if self.dof_rand_on:
+            # motor offsets fold into the setpoint: kp (q* - q + off) = kp ((q* + off) - q)
+            targets = targets + state.motor_offsets
+            gains = torch.cat([self.kp * state.kp_factors, self.kd * state.kd_factors,
+                               state.motor_strengths], dim=1)
+        if self.body_rand_on:
+            body = pack_body(state.body_com, state.body_inertia)
+        cfg = self.cfg
+        pack, diag = self.physics(
+            pack_state(state.phys), state.masses, state.friction, targets.contiguous(),
+            cfg.control.decimation, freeze=cfg.sim.freeze_mass_matrix,
+            freeze_prep=cfg.sim.pgs_freeze_prep, gains=gains, body=body,
+            planes=state.terrain_planes,
+        )
+        return unpack_state(pack, self.nj), diag
+
+    def _engine_step(self, state: EnvState, targets):
+        """The control step on the reference's XLA path: the engine, with the
+        reference env's torque function of each substep's state."""
+        lim = self.torque_limits
+        if self.dof_rand_on:
+            kp_eff = self.kp * state.kp_factors
+            kd_eff = self.kd * state.kd_factors
+
+            def torque_fn(s):
+                tau = (kp_eff * (targets - s.qj + state.motor_offsets)
+                       - kd_eff * s.u[:, 6:]) * state.motor_strengths
+                return torch.clamp(tau, -lim, lim)
+        else:
+            def torque_fn(s):
+                return torch.clamp(self.kp * (targets - s.qj) - self.kd * s.u[:, 6:], -lim, lim)
+
+        params = EnvPhysParams(masses=state.masses, friction=state.friction,
+                               com=state.body_com, inertia=state.body_inertia)
+        s = self.cfg.sim
+        args = (self._rt, params, self.terrain, self.contact_params)
+        rest = (state.phys, torque_fn, self.cfg.control.decimation, s.dt)
+        if self.pgs_params is not None:
+            return control_step_pgs(*args, self.pgs_params, *rest,
+                                    freeze_mass_matrix=s.freeze_mass_matrix, chol=self.cholesky)
+        return control_step_batch(*args, *rest, freeze_mass_matrix=s.freeze_mass_matrix,
+                                  chol=self.cholesky)
+
     # ------------------------------------------------------------------
     # lifecycle
 
@@ -444,7 +513,7 @@ class XBotLEnv:
         if dr.randomize_lag_timesteps:
             extra["lag_buffer"] = z(N, dr.lag_timesteps + 1, self.nj)
         phys = self._reset_phys(gen, N, env_origins)
-        if self.sampler is not None:
+        if self.kernel_planes:
             extra["terrain_planes"] = self.contact_planes(phys)
 
         return EnvState(
@@ -494,21 +563,10 @@ class XBotLEnv:
             targets = lagged + self.default_dof_pos
         else:
             targets = actions_scaled + self.default_dof_pos
-        gains = body = None
-        if self.dof_rand_on:
-            # motor offsets fold into the setpoint: kp (q* - q + off) = kp ((q* + off) - q)
-            targets = targets + state.motor_offsets
-            gains = torch.cat([self.kp * state.kp_factors, self.kd * state.kd_factors,
-                               state.motor_strengths], dim=1)
-        if self.body_rand_on:
-            body = pack_body(state.body_com, state.body_inertia)
-        pack, diag = self.physics(
-            pack_state(state.phys), state.masses, state.friction, targets.contiguous(),
-            cfg.control.decimation, freeze=cfg.sim.freeze_mass_matrix,
-            freeze_prep=cfg.sim.pgs_freeze_prep, gains=gains, body=body,
-            planes=state.terrain_planes,
-        )
-        phys = unpack_state(pack, self.nj)
+        if self.use_kernel:
+            phys, diag = self._kernel_step(state, targets)
+        else:
+            phys, diag = self._engine_step(state, targets)
 
         # ---- 3. counters + base quantities ----
         episode_length = state.episode_length + 1
@@ -640,7 +698,7 @@ class XBotLEnv:
         ], dim=1)
         terrain_planes = state.terrain_planes
         mh = None
-        if self.sampler is not None:
+        if self.kernel_planes:
             # one sampler call at the exit (post-reset) positions: the height
             # scan, and the next step's contact planes under the points the
             # kernel's last substep reported; just-reset envs use the
@@ -649,6 +707,9 @@ class XBotLEnv:
             fresh_xy = phys.base_pos[:, None, 0:2] + self._default_contact_xy
             con_xy = torch.where(r[:, :, None], fresh_xy, con_xy)
             mh, terrain_planes = self._sample_terrain(phys, con_xy)
+        elif self.sampler is not None and self.height_points is not None:
+            # the engine samples the heightfield itself: the height scan only
+            mh, _ = self._sample_terrain(phys, phys.base_pos.new_zeros(N, 0, 2))
         if mh is not None:
             heights = torch.clamp(phys.base_pos[:, 2:3] - 0.5 - mh, -1.0, 1.0)
             single_priv = torch.cat([single_priv, heights * os_.height_measurements], dim=1)

@@ -2,12 +2,14 @@
 plain version.
 
 `ControlStepKernel` runs one 100 Hz control step (`decimation` substeps of
-PD, dynamics, block-PGS contact and Euler) for every env. On a CUDA tensor
-it launches the hand-written kernel csrc/control_step.cu, the port of
-humanoid_tpu/ops/physics_kernel.py::_control_kernel; on a CPU tensor it
-runs `control_step_plain`: engine.control_step_pgs with the kernel's PD
-law, per-env gains and body, and ground planes, in plain PyTorch. There is
-no fallback from one to the other.
+PD, dynamics, contact and Euler) for every env, with block-PGS foot contact
+or, built without PGS parameters, the penalty model on every contact point.
+On a CUDA tensor it launches the hand-written kernel csrc/control_step.cu,
+the port of humanoid_tpu/ops/physics_kernel.py::_control_kernel; on a CPU
+tensor it runs `control_step_plain`: engine.control_step_pgs or
+engine.control_step_batch with the kernel's PD law, per-env gains and body,
+and ground planes, in plain PyTorch. There is no fallback from one to the
+other.
 
 Layouts follow the reference wrapper (_build_kernel_fn): the state pack is
 (7 + nj + nv, N) env-last, masses (N, nb), friction (N,), targets (N, nj).
@@ -21,11 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..physics.contact import ContactParams, Terrain
-from ..physics.engine import EnvPhysParams, PhysDiag, PhysState, control_step_pgs
+from ..physics.engine import (EnvPhysParams, PhysDiag, PhysState, control_step_batch,
+                              control_step_pgs)
 from ..physics.kinematics import RobotTensors
 from ..physics.pgs import PGSParams
 
@@ -75,9 +80,10 @@ def _mat_to_quat(m):
 
 
 def make_model_table(model, kp, kd, tau_lim, contact_params: ContactParams, dt: float,
-                     pgs_params: PGSParams) -> ModelTable:
+                     pgs_params: Optional[PGSParams]) -> ModelTable:
     """Pack the robot, the PD gains and the solver constants for the
-    kernel: the counterpart of the reference's make_model_consts."""
+    kernel: the counterpart of the reference's make_model_consts. Without
+    pgs_params (the penalty model) the PGS constants are 0."""
     nj, nb = model.nj, model.nb
     pt_body, pt_off = model.contact_points()
     nt, n_feet = len(model.term_sphere_body), len(model.foot_bodies)
@@ -115,8 +121,9 @@ def make_model_table(model, kp, kd, tau_lim, contact_params: ContactParams, dt: 
     t.dt = float(dt)
     t.kn, t.cn, t.v_reg = (float(contact_params.kn), float(contact_params.cn),
                            float(contact_params.v_reg))
-    t.erp, t.cfm, t.slop = (float(pgs_params.erp), float(pgs_params.cfm_ratio),
-                            float(pgs_params.slop))
+    if pgs_params is not None:
+        t.erp, t.cfm, t.slop = (float(pgs_params.erp), float(pgs_params.cfm_ratio),
+                                float(pgs_params.slop))
     return t
 
 
@@ -178,14 +185,17 @@ def pack_body(com, inertia):
 
 
 def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: ContactParams,
-                       pgs_params: PGSParams, dt: float, state_pack, masses, friction,
-                       targets, decimation: int, freeze: bool, freeze_prep: bool,
+                       pgs_params: Optional[PGSParams], dt: float, state_pack, masses,
+                       friction, targets, decimation: int, freeze: bool, freeze_prep: bool,
                        gains=None, body=None, planes=None):
-    """The plain PyTorch version of the kernel: engine.control_step_pgs with
-    the PD torque of the kernel. kp/kd/tau_lim are (nj,) tensors on the
-    state's device; gains, body and planes as the kernel takes them (None:
-    the table's gains, the model's bodies, the flat plane). Returns
-    (state pack, PhysDiag)."""
+    """The plain PyTorch version of the kernel: engine.control_step_pgs, or
+    engine.control_step_batch without pgs_params (the penalty model; no
+    contact prep, so freeze_prep has no effect), with the PD torque of the
+    kernel. kp/kd/tau_lim are (nj,) tensors on the state's device; gains,
+    body and planes as the kernel takes them (None: the table's gains, the
+    model's bodies, the flat plane). Its Cholesky factor and solves are the
+    plain versions (the engine's default), on the card too: no kernel under
+    test. Returns (state pack, PhysDiag)."""
     nj = rt.nj
     if gains is not None:
         kp, kd, strength = gains[:, :nj], gains[:, nj:2 * nj], gains[:, 2 * nj:]
@@ -199,23 +209,30 @@ def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: Contac
     com = inertia = None
     if body is not None:
         com, inertia = unpack_body(body, rt.nb)
-    phys, diag = control_step_pgs(
-        rt, EnvPhysParams(masses=masses, friction=friction, com=com, inertia=inertia),
-        Terrain.plane(), contact_params, pgs_params, unpack_state(state_pack, nj), torque_fn,
-        decimation, dt, freeze_mass_matrix=freeze, freeze_prep=freeze_prep, planes=planes,
-    )
+    params = EnvPhysParams(masses=masses, friction=friction, com=com, inertia=inertia)
+    state = unpack_state(state_pack, nj)
+    if pgs_params is None:
+        phys, diag = control_step_batch(rt, params, Terrain.plane(), contact_params, state,
+                                        torque_fn, decimation, dt, freeze_mass_matrix=freeze,
+                                        planes=planes)
+    else:
+        phys, diag = control_step_pgs(rt, params, Terrain.plane(), contact_params, pgs_params,
+                                      state, torque_fn, decimation, dt,
+                                      freeze_mass_matrix=freeze, freeze_prep=freeze_prep,
+                                      planes=planes)
     return pack_state(phys), diag
 
 
 class ControlStepKernel:
-    """Wrapper of the control-step kernel for one robot and gain set.
+    """Wrapper of the control-step kernel for one robot and gain set, on
+    the PGS contact model, or the penalty model when pgs_params is None.
 
     `launches` counts kernel launches (CUDA calls only). The library is
     built with nvcc at the first CUDA call; `build_info` then holds the
     build seconds and the ptxas report."""
 
     def __init__(self, model, kp, kd, tau_lim, contact_params: ContactParams,
-                 pgs_params: PGSParams, dt: float):
+                 pgs_params: Optional[PGSParams], dt: float):
         self.model = model
         self.contact_params = contact_params
         self.pgs_params = pgs_params
@@ -246,7 +263,7 @@ class ControlStepKernel:
             lib = info.lib
             lib.control_step_launch.restype = ctypes.c_int
             lib.control_step_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             lib.model_table_bytes.restype = ctypes.c_int
             lib.model_table_bytes.argtypes = []
             if lib.model_table_bytes() != ctypes.sizeof(ModelTable):
@@ -296,11 +313,13 @@ class ControlStepKernel:
         out = torch.empty_like(state_pack)
         diag = torch.empty((self.n_diag, N), device=dev, dtype=torch.float32)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        pgs = self.pgs_params is not None
         err = lib.control_step_launch(
             state_pack.data_ptr(), masses.data_ptr(), friction.data_ptr(), targets.data_ptr(),
             *(None if x is None else x.data_ptr() for x in (gains, body, planes)),
-            out.data_ptr(), diag.data_ptr(), N, table.data_ptr(), int(decimation),
-            int(bool(freeze)), int(bool(freeze_prep)), int(self.pgs_params.iterations), stream)
+            out.data_ptr(), diag.data_ptr(), N, table.data_ptr(), int(decimation), int(pgs),
+            int(bool(freeze)), int(bool(freeze_prep)),
+            int(self.pgs_params.iterations) if pgs else 0, stream)
         if err != 0:
             raise RuntimeError(f"control_step_kernel launch failed: cudaError {err}")
         self.launches += 1
@@ -322,9 +341,11 @@ def launch_bytes(model, N: int, gains: bool = False, body: bool = False,
 
 def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
                        iterations: int, gains: bool = False, body: bool = False,
-                       planes: bool = False) -> int:
+                       planes: bool = False, pgs: bool = True) -> int:
     """fp32 operations (add, mul, div, compare, sqrt, sin, ...) one env
-    needs in one launch, counted from the loops of csrc/control_step.cu.
+    needs in one launch, counted from the loops of csrc/control_step.cu, on
+    the PGS instance or (pgs=False) the penalty one, which has no contact
+    prep and no sweeps (freeze_prep and iterations then count nothing).
     The body input only replaces loads; gains add the strength product,
     planes the plane normals, gaps and the tangent bases."""
     nj, nb, nv = model.nj, model.nb, model.nv
@@ -342,19 +363,29 @@ def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
     own_anc = [int(anc[k + 1].sum()) for k in range(nj)]   # ancestor-or-self joints
     crba = 10 * (nb - 1) + sum(iapply + 11 * a + 1 for a in own_anc) + chol
     normal, gap = 8, 6                               # plane_normal, the plane's height and gap
-    spheres = sum(qrot + 31 + cross + 6 + 12 * int(n_anc[int(b)])
-                  + planes * (normal + gap + dot + 6 + 2 + 6)
-                  for b in model.term_sphere_body) + nj + nv + solve + 2 * nv
+
+    def penalty(b):                                  # one point's force and its projection
+        return (qrot + 31 + cross + 6 + 12 * int(n_anc[int(b)])
+                + planes * (normal + gap + dot + 6 + 2 + 6))
+
+    spheres = sum(penalty(b) for b in model.term_sphere_body)
+    feet = sum(penalty(b) + 3 for b in pt_body)
+    accel = nj + nv + solve                          # rhs += tau - C, then the solve
     frames = planes * K * (normal + 2 + cross + dot + 2 + 3 + cross)
     prep = sum(qrot + 6 + 3 * (cross + 20 * int(n_anc[int(b)])) for b in pt_body) \
         + frames + R * solve + R * (R + 1) * nv
-    pgs = K * (qrot + 3 + planes * (normal + gap)) + 2 * R * nv \
+    sweeps = K * (qrot + 3 + planes * (normal + gap)) + 2 * R * nv \
         + iterations * K * (6 * R + 50) + 2 * R * nv + solve + (6 + 12 * planes) * K
     integrate = cross + nv + 6 + 6 + 3 + 6 + 1 + 2 + 4 + qmul + 9 + 4 + 2 * nj
-    substep = (6 + gains) * nj + kin + vel_bias + spheres + pgs + integrate
+    if pgs:
+        contact = spheres + accel + 2 * nv + sweeps
+    else:                                            # the acceleration, then u + dt udot
+        contact = feet + spheres + accel + 3 + nv
+    substep = (6 + gains) * nj + kin + vel_bias + contact + integrate
+    frozen_prep = pgs and freeze and freeze_prep
     if not freeze:
         substep += crba
-    if not (freeze and freeze_prep):
+    if pgs and not frozen_prep:
         substep += prep
-    once = (kin + crba + (prep if freeze_prep else 0)) if freeze else 0
+    once = (kin + crba + (prep if frozen_prep else 0)) if freeze else 0
     return once + decimation * substep

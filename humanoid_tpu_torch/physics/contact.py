@@ -1,11 +1,12 @@
-"""The ground and the penalty contact of the termination proxy spheres.
-Port of the reference package's physics/contact.py.
+"""The ground and the penalty contact model. Port of the reference
+package's physics/contact.py.
 
 `Terrain` is the flat plane z = 0 or a global heightfield shared by all
 envs, sampled bilinearly or, with `wall_thresh > 0`, with the trimesh-like
-vertical faces. The PGS path keeps only the termination spheres on the
-penalty model (they matter during falls only); the feet go through
-physics/pgs.py.
+vertical faces. `contact_forces` is the penalty model on every contact
+point (sole corners and termination spheres); the PGS path keeps only the
+termination spheres on it (they matter during falls only), and its feet go
+through physics/pgs.py.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+
+from .spatial import quat_rotate
 
 
 class ContactParams(NamedTuple):
@@ -174,3 +177,43 @@ def _point_forces(pts, vels, heights, mu, params: ContactParams, grads=None):
     speed = torch.sqrt(torch.sum(vt * vt, dim=-1) + params.v_reg ** 2)
     f = fn[..., None] * n - (mu * fn / speed)[..., None] * vt
     return f, fn
+
+
+class ContactInfo(NamedTuple):
+    tau_gen: torch.Tensor       # (N, nv) generalized contact force
+    point_forces: torch.Tensor  # (N, P, 3) world forces at the sole corners
+    term_force: torch.Tensor    # (N, nt) normal force on the termination spheres
+
+
+def contact_forces(rt, body_pos, body_quat, v_sp, terrain: Terrain, mu,
+                   params: ContactParams, planes=None) -> ContactInfo:
+    """Penalty forces on every sole corner and termination sphere, as
+    generalized forces. body_pos/body_quat (N, nb, .) and v_sp (N, nb, 6)
+    from the kinematics, mu (N,). The ground is `terrain` (the flat plane:
+    vertical forces; a heightfield: along the sampled surface normal) or,
+    when given, `planes` (N, 3P): one plane [c0, gx, gy] per contact point,
+    forces along its normal (the control-step kernel's ground)."""
+    N = body_pos.shape[0]
+    nP = len(rt.model.contact_points()[0])
+    A = body_pos[:, 0]
+    bodies = rt.point_body
+    pts = body_pos[:, bodies] + quat_rotate(body_quat[:, bodies], rt.point_off)
+    pts = torch.cat([pts[..., 0:2], (pts[..., 2] - rt.point_rad)[..., None]], dim=-1)
+    rel = pts - A[:, None]
+    vels = v_sp[:, bodies, 3:6] + torch.linalg.cross(v_sp[:, bodies, 0:3], rel, dim=-1)
+    if planes is not None:
+        c0, gx, gy = planes.reshape(N, -1, 3).unbind(-1)
+        f, fn = _point_forces(pts, vels, c0 + gx * pts[..., 0] + gy * pts[..., 1], mu[:, None],
+                              params, grads=(gx, gy))
+    elif terrain.flat:
+        f, fn = _point_forces(pts, vels, terrain.sample(pts[..., 0:2]), mu[:, None], params)
+    else:
+        h, gx, gy = terrain.sample_with_grad(pts[..., 0:2])
+        f, fn = _point_forces(pts, vels, h, mu[:, None], params, grads=(gx, gy))
+    n_mom = torch.linalg.cross(rel, f, dim=-1)                       # (N,K,3)
+    w_j = quat_rotate(body_quat[:, 1:], rt.joint_axis)               # (N,nj,3)
+    lin_j = torch.linalg.cross(body_pos[:, 1:] - A[:, None], w_j, dim=-1)
+    contrib = torch.einsum("nki,nji->nkj", n_mom, w_j) + torch.einsum("nki,nji->nkj", f, lin_j)
+    tau_j = torch.sum(rt.ancestors[bodies] * contrib, dim=1)
+    tau_gen = torch.cat([n_mom.sum(1), f.sum(1), tau_j], dim=1)
+    return ContactInfo(tau_gen=tau_gen, point_forces=f[:, :nP], term_force=fn[:, nP:])

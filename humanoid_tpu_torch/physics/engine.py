@@ -1,10 +1,16 @@
-"""The physics engine on the PGS contact path, batched over envs: port of
-the reference package's physics/engine.py (`substep_batch_pgs`,
-`control_step_pgs`) in plain PyTorch.
+"""The physics engine, batched over envs: port of the reference package's
+physics/engine.py on its two contact models, block-PGS
+(`substep_batch_pgs`, `control_step_pgs`) and penalty (`substep_batch`,
+`control_step_batch`).
 
-This is the plain version of the CUDA control-step kernel
-(ops/physics_kernel.py): the CPU runs it, and the card runs it only to
-hold the kernel against it.
+It is the plain version of the CUDA control-step kernel
+(ops/physics_kernel.py), and the env's physics when the config turns the
+kernel off (`sim.use_pallas_substep=False`, the reference's XLA path).
+Its Cholesky factor, apply and solve are the `chol` argument's: the env
+hands in its ops/linalg.py `CholeskyKernels` (the CUDA kernels of
+csrc/linalg.cu on the card, their plain versions on the CPU); the default,
+`linalg.PLAIN`, is the plain versions on any device, so that the control
+step's plain version shares no kernel with what it is held against.
 """
 from __future__ import annotations
 
@@ -12,7 +18,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .contact import ContactParams, Terrain, _point_forces
+from ..ops.linalg import PLAIN
+from .contact import ContactParams, Terrain, _point_forces, contact_forces
 from .dynamics import assemble_mass_matrix, compute_kinematics_bias
 from .kinematics import RobotTensors
 from .pgs import PGSParams, PGSPrep, foot_contact_set, pgs_prepare, pgs_solve
@@ -44,10 +51,10 @@ class EnvPhysParams(NamedTuple):
     inertia: Optional[torch.Tensor] = None  # (N, nb, 3, 3) body-frame inertias
 
 
-def mass_matrix_factor(rt: RobotTensors, params: EnvPhysParams, state: PhysState):
+def mass_matrix_factor(rt: RobotTensors, params: EnvPhysParams, state: PhysState, chol=PLAIN):
     """Cholesky factor (N, nv, nv) of the CRBA mass matrix at `state`."""
     _, _, S, I_sp, _, _ = _kinematics_bias(rt, params, state)
-    return torch.linalg.cholesky(assemble_mass_matrix(rt, S, I_sp))
+    return chol.factor_spd_batch(assemble_mass_matrix(rt, S, I_sp).contiguous())
 
 
 def _kinematics_bias(rt: RobotTensors, params: EnvPhysParams, state: PhysState):
@@ -103,21 +110,23 @@ def substep_batch_pgs(
     L: Optional[torch.Tensor] = None,
     prep: Optional[PGSPrep] = None,
     planes: Optional[torch.Tensor] = None,
+    chol=PLAIN,
 ) -> Tuple[PhysState, PhysDiag]:
     """One velocity-stepping substep with the block-PGS foot contact.
     L: frozen mass-matrix factor, else CRBA + factor here. prep: frozen
     contact prep, else built here from this substep's configuration.
-    planes: per-point ground planes (N, 3P) in place of `terrain`."""
+    planes: per-point ground planes (N, 3P) in place of `terrain`. chol:
+    the Cholesky routines (ops/linalg.py)."""
     N = tau_j.shape[0]
     body_pos, body_quat, S, I_sp, v_sp, C = _kinematics_bias(rt, params, state)
     if L is None:
-        L = torch.linalg.cholesky(assemble_mass_matrix(rt, S, I_sp))
+        L = chol.factor_spd_batch(assemble_mass_matrix(rt, S, I_sp).contiguous())
 
     sph_tau, term_fn = _sphere_forces(
         rt, body_pos, body_quat, v_sp, terrain, params.friction, contact_params, planes)
     zeros6 = torch.zeros(N, 6, device=tau_j.device, dtype=tau_j.dtype)
     tau_gen = torch.cat([zeros6, tau_j], dim=1) + sph_tau
-    udot_free = torch.cholesky_solve((tau_gen - C)[..., None], L)[..., 0]
+    udot_free = chol.apply_spd_batch(L, (tau_gen - C).contiguous())
     u_free = state.u + dt * udot_free
 
     pts, vels, phi, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain, planes)
@@ -170,21 +179,98 @@ def control_step_pgs(
     freeze_mass_matrix: bool = True,
     freeze_prep: bool = False,
     planes: Optional[torch.Tensor] = None,
+    chol=PLAIN,
 ) -> Tuple[PhysState, PhysDiag]:
     """`decimation` PGS substeps with the PD torque recomputed each one.
     freeze_mass_matrix factors M once, from the entry configuration;
     freeze_prep (only with a frozen factor) also builds the contact prep
     once from it. The ground is `terrain`, sampled every substep (the
     reference's semantics), or `planes` (N, 3P), one plane per contact
-    point held for the whole control step (the kernel's)."""
+    point held for the whole control step (the kernel's). chol: the
+    Cholesky routines (ops/linalg.py)."""
     L = prep = None
     if freeze_mass_matrix:
-        L = mass_matrix_factor(rt, params, state)
+        L = mass_matrix_factor(rt, params, state, chol)
         if freeze_prep:
             prep = frozen_prep(rt, params, state, L, terrain, planes)
     diag = None
     for _ in range(decimation):
         state, diag = substep_batch_pgs(
             rt, params, terrain, contact_params, pgs_params, state,
-            torque_fn(state), dt, L=L, prep=prep, planes=planes)
+            torque_fn(state), dt, L=L, prep=prep, planes=planes, chol=chol)
+    return state, diag
+
+
+def substep_batch(
+    rt: RobotTensors,
+    params: EnvPhysParams,
+    terrain: Terrain,
+    contact_params: ContactParams,
+    state: PhysState,
+    tau_j: torch.Tensor,
+    dt: float,
+    L: Optional[torch.Tensor] = None,
+    planes: Optional[torch.Tensor] = None,
+    chol=PLAIN,
+) -> Tuple[PhysState, PhysDiag]:
+    """One semi-implicit Euler substep with penalty contact on every sole
+    corner and termination sphere. L: frozen mass-matrix factor (the
+    reference's cached substep: two sweeps), else CRBA and the full solve
+    here. planes: per-point ground planes (N, 3P) in place of `terrain`.
+    chol: the Cholesky routines (ops/linalg.py)."""
+    N = tau_j.shape[0]
+    body_pos, body_quat, S, I_sp, v_sp, C = _kinematics_bias(rt, params, state)
+    ci = contact_forces(rt, body_pos, body_quat, v_sp, terrain, params.friction, contact_params,
+                        planes)
+    zeros6 = torch.zeros(N, 6, device=tau_j.device, dtype=tau_j.dtype)
+    rhs = (torch.cat([zeros6, tau_j], dim=1) + ci.tau_gen - C).contiguous()
+    if L is None:
+        udot = chol.solve_spd_batch(assemble_mass_matrix(rt, S, I_sp).contiguous(), rhs)
+    else:
+        udot = chol.apply_spd_batch(L, rhs)
+    # spatial -> conventional acceleration of the base origin point
+    lin = udot[:, 3:6] + torch.linalg.cross(state.u[:, 0:3], state.u[:, 3:6], dim=-1)
+    u_new = state.u + dt * torch.cat([udot[:, 0:3], lin, udot[:, 6:]], dim=1)
+    new_state = PhysState(
+        base_pos=state.base_pos + dt * u_new[:, 3:6],
+        base_quat=quat_integrate(state.base_quat, u_new[:, 0:3], dt),
+        qj=state.qj + dt * u_new[:, 6:],
+        u=u_new,
+    )
+    n_feet = len(rt.model.foot_bodies)
+    diag = PhysDiag(
+        body_pos=body_pos,
+        body_quat=body_quat,
+        body_omega=v_sp[:, :, 0:3],
+        foot_forces=ci.point_forces.reshape(N, n_feet, -1, 3).sum(dim=2),
+        term_force=ci.term_force,
+        tau=tau_j,
+    )
+    return new_state, diag
+
+
+def control_step_batch(
+    rt: RobotTensors,
+    params: EnvPhysParams,
+    terrain: Terrain,
+    contact_params: ContactParams,
+    state: PhysState,
+    torque_fn: Callable[[PhysState], torch.Tensor],
+    decimation: int,
+    dt: float,
+    freeze_mass_matrix: bool = False,
+    planes: Optional[torch.Tensor] = None,
+    chol=PLAIN,
+) -> Tuple[PhysState, PhysDiag]:
+    """`decimation` penalty substeps with the PD torque recomputed each one.
+    freeze_mass_matrix factors M once, from the entry configuration, and
+    every substep reuses the factor; otherwise each substep solves with its
+    own. The ground is `terrain`, sampled every substep, or `planes`
+    (N, 3P), held for the control step (the kernel's). chol: the Cholesky
+    routines (ops/linalg.py)."""
+    L = mass_matrix_factor(rt, params, state, chol) if freeze_mass_matrix else None
+    diag = None
+    for _ in range(decimation):
+        state, diag = substep_batch(rt, params, terrain, contact_params, state,
+                                    torque_fn(state), dt, L=L, planes=planes, chol=chol)
     return state, diag

@@ -33,6 +33,10 @@ class RobotTensors:
     damping: torch.Tensor          # (nj,)
     ancestors: torch.Tensor        # (nb, nj) 1 where joint j is on the path to body b
     dof_mask: torch.Tensor         # (nv, nv) CRBA upper-triangle coupling mask
+    # the penalty contact points: sole corners, then termination spheres
+    point_body: torch.Tensor       # (P,) int64 body of each point
+    point_off: torch.Tensor        # (P, 3) body-frame offsets (sphere centres)
+    point_rad: torch.Tensor        # (P,) 0 on the sole corners, sphere radii
 
     @staticmethod
     def from_model(model: RobotModel, device) -> "RobotTensors":
@@ -51,6 +55,8 @@ class RobotTensors:
                 if anc[b + 1, a]:
                     D[6 + a, 6 + b] = 1.0
         jr = mat_to_quat(torch.as_tensor(np.asarray(model.joint_rot), dtype=torch.float32))
+        pt_body, pt_off = model.contact_points()
+        nt = len(model.term_sphere_body)
         return RobotTensors(
             model=model, device=device,
             parent=tuple(int(p) for p in model.parent),
@@ -59,6 +65,12 @@ class RobotTensors:
             mass=t(model.mass), com=t(model.com), inertia=t(model.inertia),
             armature=t(model.dof_armature), damping=t(model.dof_damping),
             ancestors=t(anc), dof_mask=t(D),
+            point_body=torch.as_tensor(np.r_[pt_body, model.term_sphere_body].astype(np.int64),
+                                        device=device),
+            point_off=t(np.concatenate([np.asarray(pt_off).reshape(-1, 3),
+                                        np.asarray(model.term_sphere_offset).reshape(nt, 3)])),
+            point_rad=t(np.concatenate([np.zeros(len(pt_body)),
+                                        np.asarray(model.term_sphere_radius).reshape(nt)])),
         )
 
     @property

@@ -3,8 +3,9 @@
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH]
 
-Tasks: humanoid_ppo, humanoid_ppo_terrain, humanoid_ppo_trimesh
-(utils/registry.py).
+Tasks: humanoid_ppo, humanoid_ppo_penalty, humanoid_ppo_terrain,
+humanoid_ppo_trimesh (utils/registry.py). `--contact penalty|pgs` overrides
+the task's contact model.
 
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
@@ -22,6 +23,8 @@ def get_args(argv=None):
     p.add_argument("--num-envs", "--num_envs", dest="num_envs", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--max-iterations", "--max_iterations", dest="max_iterations", type=int)
+    p.add_argument("--contact", choices=["penalty", "pgs"],
+                   help="contact model override: the block-PGS solve or the penalty model")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--urdf", default=None,
                    help="robot URDF (default: the XBot-topology stand-in)")

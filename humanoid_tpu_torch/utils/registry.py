@@ -3,6 +3,9 @@ reference registry's configs.
 
   humanoid_ppo          flat ground, block-PGS contact (6 cold sweeps),
                         frozen mass-matrix factor and contact prep
+  humanoid_ppo_penalty  the contact-model A/B: humanoid_ppo's task on the
+                        penalty (spring-damper) contact, XBotLCfg()'s
+                        defaults
   humanoid_ppo_terrain  the same physics on the heightfield curriculum
                         (humanoid generator set) with the 187-point height
                         scan in the critic frame, the extended domain
@@ -36,6 +39,7 @@ _TERRAIN_REWARDS = RewardsCfg(
 
 _REGISTRY: Dict[str, Tuple[XBotLCfg, XBotLCfgPPO]] = {
     "humanoid_ppo": (XBotLCfg(sim=_PGS), XBotLCfgPPO()),
+    "humanoid_ppo_penalty": (XBotLCfg(), XBotLCfgPPO()),
     "humanoid_ppo_terrain": (
         XBotLCfg(
             env=EnvCfg(single_num_privileged_obs=73 + 187),
@@ -74,7 +78,8 @@ def get_cfgs(name: str) -> Tuple[XBotLCfg, XBotLCfgPPO]:
 
 
 def update_cfg_from_args(env_cfg: XBotLCfg, train_cfg: XBotLCfgPPO, args):
-    """The CLI override whitelist: num_envs, seed, max_iterations."""
+    """The CLI override whitelist: num_envs, seed, max_iterations and the
+    contact model."""
     if getattr(args, "num_envs", None):
         env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=args.num_envs))
     if getattr(args, "seed", None) is not None:
@@ -83,6 +88,8 @@ def update_cfg_from_args(env_cfg: XBotLCfg, train_cfg: XBotLCfgPPO, args):
     if getattr(args, "max_iterations", None):
         train_cfg = train_cfg.replace(runner=dataclasses.replace(
             train_cfg.runner, max_iterations=args.max_iterations))
+    if getattr(args, "contact", None):
+        env_cfg = env_cfg.replace(sim=dataclasses.replace(env_cfg.sim, contact_model=args.contact))
     return env_cfg, train_cfg
 
 
@@ -109,8 +116,12 @@ def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda"):
     return XBotLEnv(env_cfg, urdf, device=device, terrain=terrain, terrain_world=world)
 
 
-def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None):
-    env_cfg, train_cfg = get_cfgs(name)
+def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None,
+             env_cfg: Optional[XBotLCfg] = None):
+    """(env, env cfg, train cfg) of a task; env_cfg, when given, replaces
+    the task's env config (then the CLI overrides apply to it)."""
+    task_env_cfg, train_cfg = get_cfgs(name)
+    env_cfg = env_cfg or task_env_cfg
     if args is not None:
         env_cfg, train_cfg = update_cfg_from_args(env_cfg, train_cfg, args)
     return build_env(env_cfg, urdf or default_urdf(), device), env_cfg, train_cfg

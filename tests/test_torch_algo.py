@@ -194,11 +194,13 @@ def test_train_iteration_runs_at_small_size():
     for x in (m.update.value_loss, m.update.surrogate_loss, m.update.kl, m.mean_step_reward):
         assert torch.isfinite(x)
     assert m.kernel_launches == 0          # CPU tensors take the plain version
+    assert (m.factor_launches, m.apply_launches, m.solve_launches) == (0, 0, 0)
     assert all(torch.isfinite(p).all() for p in runner.net.parameters())
     assert any(not torch.equal(p, q) for p, q in zip(runner.net.parameters(), before))
 
 
-@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain", "humanoid_ppo_trimesh"])
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain", "humanoid_ppo_trimesh",
+                                  "humanoid_ppo_penalty"])
 def test_registry_config_matches_reference(task):
     from humanoid_tpu.utils import registry as jreg
     from humanoid_tpu_torch.utils import registry
@@ -207,8 +209,53 @@ def test_registry_config_matches_reference(task):
     te, tt = registry.get_cfgs(task)
     assert dataclasses.asdict(te) == dataclasses.asdict(je)
     assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
-    assert registry.list_tasks() == ["humanoid_ppo", "humanoid_ppo_terrain",
-                                     "humanoid_ppo_trimesh"]
+    assert registry.list_tasks() == ["humanoid_ppo", "humanoid_ppo_penalty",
+                                     "humanoid_ppo_terrain", "humanoid_ppo_trimesh"]
+
+
+@pytest.mark.parametrize("task,contact", [("humanoid_ppo", "penalty"),
+                                          ("humanoid_ppo_penalty", "pgs")])
+def test_contact_override_matches_reference(task, contact):
+    """`--contact` on both CLIs gives the same configs."""
+    from humanoid_tpu.scripts import train as jtrain
+    from humanoid_tpu.utils import registry as jreg
+    from humanoid_tpu_torch.scripts import train
+    from humanoid_tpu_torch.utils import registry
+
+    argv = ["--task", task, "--contact", contact, "--num-envs", "64"]
+    je, jt = jreg.update_cfg_from_args(*jreg.get_cfgs(task), jtrain.get_args(argv))
+    te, tt = registry.update_cfg_from_args(*registry.get_cfgs(task), train.get_args(argv))
+    assert te.sim.contact_model == contact
+    assert dataclasses.asdict(te) == dataclasses.asdict(je)
+    assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
+
+
+@pytest.mark.parametrize("task,sim", [
+    ("humanoid_ppo_penalty", {}),
+    ("humanoid_ppo", {"use_pallas_substep": False}),
+    ("humanoid_ppo_penalty", {"use_pallas_substep": False, "freeze_mass_matrix": False}),
+])
+def test_train_iteration_on_each_physics_path_at_small_size(task, sim):
+    """make_env(env_cfg=...) + make_alg_runner on the penalty kernel path
+    and on the engine path (PGS with a frozen factor; penalty with a solve
+    each substep): one iteration of 4 steps at 8 envs on the CPU."""
+    from humanoid_tpu_torch.utils import registry
+
+    env_cfg, _ = registry.get_cfgs(task)
+    env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=8),
+                              sim=dataclasses.replace(env_cfg.sim, **sim))
+    env, cfg, train_cfg = registry.make_env(task, device="cpu", env_cfg=env_cfg)
+    assert cfg is env_cfg and env.use_kernel == env_cfg.sim.use_pallas_substep
+    train_cfg = train_cfg.replace(runner=dataclasses.replace(train_cfg.runner,
+                                                             num_steps_per_env=4))
+    runner = registry.make_alg_runner(env, train_cfg)
+    carry, m = runner.train_iteration(runner.init_carry())
+    assert carry.obs.shape == (8, OBS) and carry.critic_obs.shape == (8, PRIV)
+    for x in (m.update.value_loss, m.update.surrogate_loss, m.update.kl, m.mean_step_reward):
+        assert torch.isfinite(x)
+    assert all(torch.isfinite(p).all() for p in runner.net.parameters())
+    assert (m.kernel_launches, m.factor_launches, m.apply_launches, m.solve_launches) == \
+        (0, 0, 0, 0)
 
 
 def test_train_cli_needs_a_card_unless_asked_for_cpu():

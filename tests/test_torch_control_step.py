@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from humanoid_tpu.ops import linalg as jlinalg
+from humanoid_tpu.physics import dynamics as jdyn
 from humanoid_tpu.physics import engine as jeng
 from humanoid_tpu.physics.contact import ContactParams as JContactParams
 from humanoid_tpu.physics.contact import Terrain as JTerrain
@@ -207,12 +209,12 @@ def host_build(tmp_path_factory):
         f'#include "{os.path.abspath(CSRC)}"\n'
         "extern \"C\" void host_control_step(const float* s, const float* m, const float* f,\n"
         "    const float* t, const float* g, const float* b, const float* pl, float* so,\n"
-        "    float* d, int N, const void* table, int dec, int fr, int fp, int it) {\n"
+        "    float* d, int N, const void* table, int dec, int pgs, int fr, int fp, int it) {\n"
         "  const ModelTable& mt = *static_cast<const ModelTable*>(table);\n"
         "  Work* W = new Work;\n"
         "  for (int n = 0; n < N; ++n)\n"
-        "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, fr != 0, fp != 0, it,\n"
-        "                     *W);\n"
+        "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, pgs != 0, fr != 0,\n"
+        "                     fp != 0, it, *W);\n"
         "  delete W;\n"
         "}\n"
         "extern \"C\" int host_table_bytes() { return (int)sizeof(ModelTable); }\n")
@@ -220,21 +222,24 @@ def host_build(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
     lib.host_control_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 5
     return lib
 
 
 def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=None, body=None,
                planes=None):
-    """One control step of the host-compiled kernel source."""
+    """One control step of the host-compiled kernel source, on the contact
+    model of the wrapper k (PGS, or penalty without PGS parameters)."""
     n = pack.shape[1]
     out = torch.empty_like(pack)
     diag = torch.empty((k.n_diag, n))
     dec, fr, fp = instance
     ptr = [None if x is None else x.contiguous().data_ptr()
            for x in (pack, masses, friction, targets, gains, body, planes)]
+    pgs = k.pgs_params is not None
     host_build.host_control_step(*ptr, out.data_ptr(), diag.data_ptr(), n,
-                                 ctypes.addressof(k.table), dec, int(fr), int(fp), SWEEPS)
+                                 ctypes.addressof(k.table), dec, int(pgs), int(fr), int(fp),
+                                 SWEEPS if pgs else 0)
     return out, unpack_diag(diag, k.model)
 
 
@@ -462,3 +467,172 @@ def test_bounds_catch_a_kernel_that_ignores_an_input(setup, ramp, host_build, dr
                     **{key: v for key, v in extras.items() if key != dropped})
     du, dpos, dff = _kernel_errors(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
     assert du >= 1e-2 or dpos >= 1e-5 or dff >= 0.01, (du, dpos, dff)
+
+
+# ---------------------------------------------------------------------------
+# the penalty contact model: engine.control_step_batch and the kernel's
+# penalty instance (built without PGS parameters), on the same pressed
+# states. Every sole corner is 1 mm or more inside the ground there, and the
+# penalty force (2e4 N/m) pushes it deeper under the robot's weight, so the
+# contact set holds for the control step in both implementations.
+
+@pytest.fixture(scope="module")
+def penalty_kernel(setup):
+    return ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(), None, 0.001)
+
+
+def _jax_pack(js):
+    return np.concatenate([np.asarray(js.base_pos), np.asarray(js.base_quat),
+                           np.asarray(js.qj), np.asarray(js.u)], axis=1).T
+
+
+@pytest.mark.parametrize("freeze", [True, False])
+def test_penalty_control_step_matches_reference_engine(setup, penalty_kernel, freeze):
+    """control_step_plain without PGS (engine.control_step_batch, frozen
+    factor: B3 + B4; unfrozen: B5 each substep) vs the reference's."""
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    step = jax.jit(lambda s: jeng.control_step_batch(
+        setup["jm"], params, JTerrain.plane(), JContactParams(), s, _jax_torque(setup), 10,
+        0.001, freeze_mass_matrix=freeze))
+    js, jd = step(_jax_state(setup["pack"]))
+    tp, td = penalty_kernel.plain(setup["pack"], *_torch_args(setup), 10, freeze, True)
+    _assert_within_kernel_bounds(tp, td.foot_forces, _jax_pack(js), jd.foot_forces,
+                                 setup["weight"])
+    np.testing.assert_allclose(td.body_pos.numpy(), np.asarray(jd.body_pos), atol=1e-5)
+    np.testing.assert_allclose(td.term_force.numpy(), np.asarray(jd.term_force), atol=1e-3)
+    # the feet carry the robot through the penalty springs
+    assert float(td.foot_forces[..., 2].sum(1).min()) > 0.5 * setup["weight"]
+
+
+def test_cached_penalty_substep_matches_reference_engine(setup):
+    """engine.substep_batch with a frozen factor L (B4 against it, B3 for
+    L) vs the reference's substep_batch_cached, one substep from the
+    pressed state."""
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    torque = _jax_torque(setup)
+    js0 = _jax_state(setup["pack"])
+
+    def factor(s):
+        jm = setup["jm"]
+        k = jax.vmap(lambda bp, bq, qj, u, m: jdyn.compute_kinematics_bias(
+            jm, bp, bq, qj, u, mass=m))(s.base_pos, s.base_quat, s.qj, s.u, params.masses)
+        M = jax.vmap(lambda S, I: jdyn.assemble_mass_matrix(jm, S, I))(k[2], k[3])
+        return jlinalg.factor_spd_batch(M)
+
+    with jax.default_matmul_precision("highest"):
+        L = jax.jit(factor)(js0)
+    js, jd = jax.jit(lambda s: jeng.substep_batch_cached(
+        setup["jm"], params, JTerrain.plane(), JContactParams(), s, torque(s), 0.001, L))(js0)
+    masses, friction, targets = _torch_args(setup)
+    kp, kd, lim = (torch.tensor(x) for x in (KP, KD, setup["lim"]))
+    rt = RobotTensors.from_model(setup["tm"], "cpu")
+    tparams = teng.EnvPhysParams(masses, friction)
+    state = unpack_state(setup["pack"], 12)
+    tau = torch.clamp(kp * (targets - state.qj) - kd * state.u[:, 6:], -lim, lim)
+    ts, td = teng.substep_batch(rt, tparams, Terrain.plane(), ContactParams(), state, tau, 0.001,
+                                L=teng.mass_matrix_factor(rt, tparams, state))
+    _assert_within_kernel_bounds(pack_state(ts), td.foot_forces, _jax_pack(js), jd.foot_forces,
+                                 setup["weight"])
+    np.testing.assert_allclose(td.foot_forces.numpy(), np.asarray(jd.foot_forces), rtol=1e-4,
+                               atol=1e-2)
+
+
+def test_unfrozen_pgs_control_step_matches_reference_engine(setup):
+    """engine.control_step_pgs with freeze_mass_matrix=False (B3 each
+    substep) vs the reference's."""
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    step = jax.jit(lambda s: jeng.control_step_pgs(
+        setup["jm"], params, JTerrain.plane(), JContactParams(), JPGSParams(iterations=SWEEPS),
+        s, _jax_torque(setup), 10, 0.001, freeze_mass_matrix=False))
+    js, jd = step(_jax_state(setup["pack"]))
+    tp, td = setup["kernel"].plain(setup["pack"], *_torch_args(setup), 10, False, False)
+    _assert_within_kernel_bounds(tp, td.foot_forces, _jax_pack(js), jd.foot_forces,
+                                 setup["weight"])
+
+
+def test_penalty_planes_on_a_ramp_match_reference_heightfield(setup, penalty_kernel, ramp):
+    """control_step_plain without PGS with planes vs the reference's
+    control_step_batch on the ramp's heightfield, where the per-substep
+    bilinear sample and the per-control-step tangent plane coincide."""
+    pack, planes = ramp
+    i = np.arange(101)[:, None]
+    j = np.arange(101)[None, :]
+    height = (0.005 * (i - j)).astype(np.float32)
+    jt = JTerrain(height=jnp.asarray(height), horizontal_scale=0.1, border=5.0, flat=False)
+    params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
+                                friction=jnp.asarray(setup["friction"]))
+    step = jax.jit(lambda s: jeng.control_step_batch(
+        setup["jm"], params, jt, JContactParams(), s, _jax_torque(setup), 10, 0.001,
+        freeze_mass_matrix=True))
+    js, jd = step(_jax_state(pack))
+    tp, td = penalty_kernel.plain(pack, *_torch_args(setup), 10, True, True, planes=planes)
+    _assert_within_kernel_bounds(tp, td.foot_forces, _jax_pack(js), jd.foot_forces,
+                                 setup["weight"])
+    assert float(td.foot_forces[..., 0].abs().max()) > 1.0
+
+
+@pytest.mark.parametrize("case", ["flat-exact", "flat-shipping", "flat-unfrozen",
+                                  "ramp-shipping", "ramp-exact", "random-planes-exact"])
+def test_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp, host_build,
+                                                     case):
+    """The host-compiled kernel's penalty instance vs control_step_batch:
+    on the flat plane without inputs, and with gains, body and planes on
+    the ramp and on random per-point planes."""
+    k = penalty_kernel
+    masses, friction, targets = _torch_args(setup)
+    instance = {"exact": (1, False, False), "shipping": (10, True, True),
+                "unfrozen": (10, False, False)}[case.split("-")[-1]]
+    extras = {}
+    pack = setup["pack"]
+    if case.startswith("ramp"):
+        pack, planes = ramp
+        gains, body = _gains_body(_random_extras(setup["tm"]))
+        extras = dict(gains=gains, body=body, planes=planes)
+    elif case.startswith("random"):
+        pack, targets, planes = _random_near_ground(setup["tm"])
+        gains, body = _gains_body(_random_extras(setup["tm"]))
+        extras = dict(gains=gains, body=body, planes=planes)
+    out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance, **extras)
+    b, db = k.plain(pack, masses, friction, targets, *instance, **extras)
+    _assert_within_kernel_bounds(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
+    np.testing.assert_allclose(hd.body_pos.numpy(), db.body_pos.numpy(), atol=1e-5)
+    np.testing.assert_allclose(hd.tau.numpy(), db.tau.numpy(), atol=1e-2)
+    np.testing.assert_allclose(hd.term_force.numpy(), db.term_force.numpy(), atol=1e-3)
+    if not case.startswith("random"):      # both feet pushed by the springs
+        assert float(db.foot_forces[..., 2].min()) > 0.1 * setup["weight"]
+
+
+def test_penalty_bounds_catch_a_kernel_that_ignores_planes(setup, penalty_kernel, ramp,
+                                                           host_build):
+    """Control: the host-compiled penalty instance on the ramp against the
+    plain version run without the planes falls outside the bounds."""
+    pack, planes = ramp
+    masses, friction, targets = _torch_args(setup)
+    out, hd = _host_step(host_build, penalty_kernel, pack, masses, friction, targets,
+                         (10, True, True), planes=planes)
+    b, db = penalty_kernel.plain(pack, masses, friction, targets, 10, True, True)
+    du, dpos, dff = _kernel_errors(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
+    assert du >= 1e-2 or dpos >= 1e-5 or dff >= 0.01, (du, dpos, dff)
+
+
+def test_penalty_wrapper_takes_plain_path_on_cpu(setup, penalty_kernel):
+    a, da = penalty_kernel(setup["pack"], *_torch_args(setup), 10, True, True)
+    b, db = penalty_kernel.plain(setup["pack"], *_torch_args(setup), 10, True, True)
+    assert penalty_kernel.launches == 0 and penalty_kernel.table.erp == 0.0
+    assert torch.equal(a, b) and torch.equal(da.foot_forces, db.foot_forces)
+
+
+def test_penalty_operation_count(setup):
+    """The penalty instance has no contact prep and no sweeps: well under
+    the PGS instance's count, and freeze_prep and the sweep count change
+    nothing."""
+    from humanoid_tpu_torch.ops.physics_kernel import operations_per_env
+
+    tm = setup["tm"]
+    pen = operations_per_env(tm, 10, True, True, 0, pgs=False)
+    assert pen == operations_per_env(tm, 10, True, False, 6, pgs=False)
+    assert 0 < pen < operations_per_env(tm, 10, True, True, 6) / 2
+    assert operations_per_env(tm, 10, True, True, 6) == 228935

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA control-step kernel (without and
-with its gains, body and planes inputs) and the heightfield sampler against
-their plain PyTorch versions. They import nothing of JAX, so that they run
+with its gains, body and planes inputs, on PGS and penalty contact), the
+heightfield sampler and the batched Cholesky kernels against their plain
+PyTorch versions. They import nothing of JAX, so that they run
 on a machine with the card:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from humanoid_tpu_torch.ops import linalg
 from humanoid_tpu_torch.ops.physics_kernel import ControlStepKernel, n_points, pack_body, pack_state
 from humanoid_tpu_torch.ops.terrain_sampler import TerrainSampler
 from humanoid_tpu_torch.physics.engine import PhysState
+from humanoid_tpu_torch.physics.pgs import PGSParams
 from humanoid_tpu_torch.utils import registry
 
 N = 256
@@ -29,7 +32,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _loaded_feet(kernel, model, device, planes=None):
+def _loaded_feet(kernel, model, device, planes=None, N=N):
     rng = np.random.default_rng(0)
 
     def t(x):
@@ -143,3 +146,122 @@ def test_cuda_sampler_matches_plain(cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(a_corners, b_corners))
     with pytest.raises(ValueError):
         s(scan.double(), con)
+
+
+# ---------------------------------------------------------------------------
+# the batched Cholesky kernels (csrc/linalg.cu) and the penalty instance, at
+# the shipping 4096 envs
+
+ENVS = 4096
+
+
+def _spd(n, count, cond, seed):
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(count, n, n)))
+    eig = np.exp(rng.uniform(0.0, np.log(cond), (count, n)))
+    eig[:, 0], eig[:, -1] = 1.0, cond
+    return (Q * eig[:, None, :] @ np.swapaxes(Q, 1, 2)).astype(np.float32), \
+        rng.normal(size=(count, n)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cond", [(18, 1e2), (18, 1e5), (24, 1e3)])
+def test_cuda_linalg_matches_plain(cuda_device, n, cond):
+    """B3, B4 and B5 vs their plain versions: the factor to 1e-4 of its
+    largest entry, solutions to max(1e-5, eps cond) of theirs, eps the
+    float32 machine epsilon (two float32 algorithms, each within ~eps cond
+    of the exact solution; chip_smoke.py's bound)."""
+    M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(n, ENVS, cond, n))
+    tol = max(1e-5, float(np.finfo(np.float32).eps) * cond)
+    k = linalg.CholeskyKernels()
+    L = k.factor_spd_batch(M)
+    Lp = linalg.chol_factor_unrolled(M)
+    x = k.apply_spd_batch(Lp, b)
+    xp = linalg.chol_apply_unrolled(Lp, b)
+    xs = k.solve_spd_batch(M, b)
+    xsp = linalg.chol_solve_unrolled(M, b)
+    torch.cuda.synchronize()
+    assert k.launches == {"chol_factor": 1, "chol_apply": 1, "chol_solve": 1}
+    assert float((L - Lp).abs().max()) < 1e-4 * float(Lp.abs().max())
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert float((x - xp).abs().max()) < tol * float(xp.abs().max())
+    assert float((xs - xsp).abs().max()) < tol * float(xsp.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_linalg_gives_nan_on_non_spd_and_checks_inputs(cuda_device):
+    M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(18, 64, 1e2, 1))
+    M[1, 7, 7] = -1.0
+    M[2] = 0.0
+    k = linalg.CholeskyKernels()
+    xs = k.solve_spd_batch(M, b)
+    L = k.factor_spd_batch(M)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xs[0]).all()) and bool(torch.isfinite(L[0]).all())
+    assert all(bool(torch.isnan(xs[i]).any()) and bool(torch.isnan(L[i]).any()) for i in (1, 2))
+    with pytest.raises(ValueError):
+        k.solve_spd_batch(M.double(), b.double())
+    with pytest.raises(ValueError):
+        k.apply_spd_batch(M.transpose(1, 2), b)
+    with pytest.raises(ValueError):
+        k.factor_spd_batch(torch.zeros(4, 25, 25, device=cuda_device))
+    assert k.launches == {"chol_factor": 1, "chol_apply": 0, "chol_solve": 1}
+
+
+def _penalty_kernel(device):
+    env, _, _ = registry.make_env("humanoid_ppo_penalty", device=device)
+    p = env.physics
+    return env, ControlStepKernel(env.model, *p.gains, p.contact_params, None, p.dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", [(1, False, False), (10, True, True), (10, False, False)])
+def test_cuda_penalty_kernel_matches_plain(cuda_device, instance):
+    """The penalty instance vs engine.control_step_batch at 4096 envs, on
+    robots pressed 1 mm into the flat ground."""
+    env, k = _penalty_kernel(cuda_device)
+    pgs = ControlStepKernel(env.model, *k.gains, k.contact_params, PGSParams(iterations=6), k.dt)
+    inputs = _loaded_feet(pgs, env.model, cuda_device, N=ENVS)
+    a, da = k(*inputs, *instance)
+    b, db = k.plain(*inputs, *instance)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    weight = env.model.total_mass * 9.81
+    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
+    assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
+    assert float(db.foot_forces[..., 2].min()) > 0.1 * weight
+
+
+@pytest.mark.cuda
+def test_cuda_penalty_kernel_with_gains_body_planes_matches_plain(cuda_device):
+    """The penalty instance with random gains and bodies on a ramp (planes
+    with gradient (0.05, -0.05)) at 4096 envs."""
+    env, k = _penalty_kernel(cuda_device)
+    m = env.model
+    pgs = ControlStepKernel(m, *k.gains, k.contact_params, PGSParams(iterations=6), k.dt)
+    rng = np.random.default_rng(1)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=cuda_device).contiguous()
+
+    planes = t(np.tile([0.0, 0.05, -0.05], (ENVS, n_points(m))))
+    inputs = _loaded_feet(pgs, m, cuda_device, planes, N=ENVS)
+    kp, kd = k.gains[:2]
+    gains = t(np.concatenate([kp * rng.uniform(0.8, 1.2, (ENVS, m.nj)),
+                              kd * rng.uniform(0.8, 1.2, (ENVS, m.nj)),
+                              np.repeat(rng.uniform(0.8, 1.2, (ENVS, 1)), m.nj, axis=1)], axis=1))
+    com = np.tile(m.com, (ENVS, 1, 1))
+    com[:, 0] += rng.uniform(-0.03, 0.03, (ENVS, 3))
+    body = pack_body(t(com), t(np.tile(m.inertia, (ENVS, 1, 1, 1)) * 1.1)).contiguous()
+    a, da = k(*inputs, 10, True, True, gains=gains, body=body, planes=planes)
+    b, db = k.plain(*inputs, 10, True, True, gains=gains, body=body, planes=planes)
+    c, dc = k.plain(*inputs, 10, True, True, gains=gains, body=body)
+    torch.cuda.synchronize()
+    weight = m.total_mass * 9.81
+    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
+    assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
+    # control: without the planes the plain version falls outside the bounds
+    assert float((a[19:] - c[19:]).abs().max()) >= 1e-2 \
+        or float((da.foot_forces - dc.foot_forces).abs().max()) >= 0.01 * weight

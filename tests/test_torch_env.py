@@ -9,7 +9,9 @@ term's episode sum to atol 1e-4. The robots start 4 cm below the reset
 height so that their feet land within the 5 steps. The physics is the
 shipping PGS path with the frozen factor; the contact prep is exact (per
 substep) in both, since the reference applies frozen prep only inside its
-TPU kernel.
+TPU kernel. Two more pairs run the same comparison: the engine path
+(`use_pallas_substep=False`) with `pgs_freeze_prep=True`, which the
+reference ignores there, and the penalty contact model on the kernel path.
 """
 import zlib
 
@@ -31,11 +33,12 @@ STEPS = 5
 ATOL = 1e-4
 
 
-def make_cfg(mod, urdf, n=N):
+def make_cfg(mod, urdf, n=N, **sim):
+    sim = {"contact_model": "pgs", "pgs_iterations": 6, "pgs_freeze_prep": False, **sim}
     return mod.XBotLCfg(
         env=mod.EnvCfg(num_envs=n),
         asset=mod.AssetCfg(urdf=urdf),
-        sim=mod.SimCfg(contact_model="pgs", pgs_iterations=6, pgs_freeze_prep=False),
+        sim=mod.SimCfg(**sim),
         domain_rand=mod.DomainRandCfg(action_delay=False, dynamic_randomization=0.0,
                                       push_robots=False),
         noise=mod.NoiseCfg(add_noise=False),
@@ -51,11 +54,11 @@ def to_port_state(js) -> EnvState:
     return EnvState(phys=phys, common_step=t(js.common_step, torch.int64), **fields)
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    urdf = write_xbot_topology_urdf(str(tmp_path_factory.mktemp("urdf")))
-    jenv = JaxEnv(make_cfg(jcfg, urdf))
-    tenv = XBotLEnv(make_cfg(tcfg, urdf), urdf, device="cpu")
+def run_pair(urdf, **sim):
+    """Both envs on the config with `sim` overrides, 5 steps of the same
+    random actions from the reference's initial state."""
+    jenv = JaxEnv(make_cfg(jcfg, urdf, **sim))
+    tenv = XBotLEnv(make_cfg(tcfg, urdf, **sim), urdf, device="cpu")
     js = jenv.initial_state(jax.random.PRNGKey(3))
     # start 4 cm lower than the reset height, so the feet land within the 5 steps
     js = js._replace(phys=js.phys._replace(base_pos=js.phys.base_pos.at[:, 2].add(-0.04)))
@@ -70,6 +73,85 @@ def run(tmp_path_factory):
         ts, to = tenv.step(ts, torch.as_tensor(a), gen)
         out.append((js, jo, ts, to))
     return jenv, tenv, out
+
+
+@pytest.fixture(scope="module")
+def urdf(tmp_path_factory):
+    return write_xbot_topology_urdf(str(tmp_path_factory.mktemp("urdf")))
+
+
+@pytest.fixture(scope="module")
+def run(urdf):
+    return run_pair(urdf)
+
+
+@pytest.fixture(scope="module")
+def run_engine(urdf):
+    """The engine path (use_pallas_substep=False) on flat PGS with
+    pgs_freeze_prep=True, which the reference ignores on that path (contact
+    prep every substep, cold start): the port must ignore it too."""
+    return run_pair(urdf, use_pallas_substep=False, pgs_freeze_prep=True)
+
+
+@pytest.fixture(scope="module")
+def run_penalty(urdf):
+    """The penalty model on the kernel path (the port's plain version of
+    the kernel's penalty instance; the reference's control_step_batch with
+    the frozen factor)."""
+    return run_pair(urdf, contact_model="penalty")
+
+
+def _assert_step_matches(jo, to):
+    np.testing.assert_array_equal(to.reset.numpy(), np.asarray(jo.reset))
+    np.testing.assert_array_equal(to.time_outs.numpy(), np.asarray(jo.time_outs))
+    np.testing.assert_allclose(to.obs.numpy(), np.asarray(jo.obs), atol=ATOL)
+    np.testing.assert_allclose(to.privileged_obs.numpy(), np.asarray(jo.privileged_obs), atol=ATOL)
+    np.testing.assert_allclose(to.rew.numpy(), np.asarray(jo.rew), atol=ATOL)
+    np.testing.assert_allclose(to.rew_terms_mean.numpy(), np.asarray(jo.rew_terms_mean), atol=ATOL)
+
+
+@pytest.mark.parametrize("k", range(STEPS))
+def test_engine_path_step_matches_reference(run_engine, k):
+    _, tenv, out = run_engine
+    js, jo, ts, to = out[k]
+    _assert_step_matches(jo, to)
+    assert tenv.physics.launches == 0 and ts.terrain_planes is None
+
+
+@pytest.mark.parametrize("k", range(STEPS))
+def test_penalty_step_matches_reference(run_penalty, k):
+    js, jo, ts, to = run_penalty[2][k]
+    _assert_step_matches(jo, to)
+
+
+@pytest.mark.parametrize("name", ["run_engine", "run_penalty"])
+def test_engine_and_penalty_paths_reach_the_ground(request, name):
+    jenv, tenv, out = request.getfixturevalue(name)
+    js, _, ts, to = out[-1]
+    assert float(to.privileged_obs[:, -2:].amax(dim=1).min()) == 1.0
+    np.testing.assert_allclose(ts.episode_sums.numpy(), np.asarray(js.episode_sums), atol=ATOL)
+
+
+def test_engine_path_differs_from_kernel_path_with_frozen_prep(urdf, run_engine):
+    """Control: the flag reaches the physics. With pgs_freeze_prep=True the
+    kernel path (frozen contact prep) steps differently from the engine
+    path (prep every substep) on the same inputs."""
+    tenv = XBotLEnv(make_cfg(tcfg, urdf, pgs_freeze_prep=True), urdf, device="cpu")
+    js0 = JaxEnv(make_cfg(jcfg, urdf)).initial_state(jax.random.PRNGKey(3))
+    js0 = js0._replace(phys=js0.phys._replace(base_pos=js0.phys.base_pos.at[:, 2].add(-0.04)))
+    ts = to_port_state(js0)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(1)
+    for i in range(STEPS):
+        ts, to = tenv.step(ts, torch.as_tensor(rng.uniform(-0.5, 0.5, (N, 12)).astype(
+            np.float32)), gen)
+    engine_obs = run_engine[2][-1][3].obs
+    assert float((to.obs - engine_obs).abs().max()) > 1e-3
+
+
+def test_unknown_contact_model_is_refused(urdf):
+    with pytest.raises(ValueError, match="contact_model"):
+        XBotLEnv(make_cfg(tcfg, urdf, contact_model="soft"), urdf, device="cpu")
 
 
 def test_initial_state_shapes_match(tmp_path_factory):
@@ -94,12 +176,7 @@ def test_initial_state_shapes_match(tmp_path_factory):
 def test_step_matches_reference(run, k):
     _, _, out = run
     js, jo, ts, to = out[k]
-    np.testing.assert_array_equal(to.reset.numpy(), np.asarray(jo.reset))
-    np.testing.assert_array_equal(to.time_outs.numpy(), np.asarray(jo.time_outs))
-    np.testing.assert_allclose(to.obs.numpy(), np.asarray(jo.obs), atol=ATOL)
-    np.testing.assert_allclose(to.privileged_obs.numpy(), np.asarray(jo.privileged_obs), atol=ATOL)
-    np.testing.assert_allclose(to.rew.numpy(), np.asarray(jo.rew), atol=ATOL)
-    np.testing.assert_allclose(to.rew_terms_mean.numpy(), np.asarray(jo.rew_terms_mean), atol=ATOL)
+    _assert_step_matches(jo, to)
 
 
 def test_reward_terms_match_reference(run):

@@ -53,11 +53,11 @@ ATOL = 1e-4
 TASK = "humanoid_ppo_terrain"
 
 
-def make_cfg(cfg, urdf, freeze_prep):
+def make_cfg(cfg, urdf, freeze_prep, **sim):
     r = dataclasses.replace
     return cfg.replace(
         env=r(cfg.env, num_envs=N), asset=r(cfg.asset, urdf=urdf),
-        sim=r(cfg.sim, pgs_freeze_prep=freeze_prep),
+        sim=r(cfg.sim, pgs_freeze_prep=freeze_prep, **sim),
         domain_rand=r(cfg.domain_rand, action_delay=False, dynamic_randomization=0.0,
                       push_robots=False, lag_timesteps=0),
         noise=r(cfg.noise, add_noise=False),
@@ -81,11 +81,11 @@ def ramp_world(tc):
     return height, origins
 
 
-def build_pair(urdf, freeze_prep, world):
+def build_pair(urdf, freeze_prep, world, **sim):
     """(reference env, port env) of the task on `world` = (height, origins)
-    or None for the task's generated world."""
-    jc = make_cfg(jreg.get_cfgs(TASK)[0], urdf, freeze_prep)
-    tc = make_cfg(registry.get_cfgs(TASK)[0], urdf, freeze_prep)
+    or None for the task's generated world; `sim` overrides its SimCfg."""
+    jc = make_cfg(jreg.get_cfgs(TASK)[0], urdf, freeze_prep, **sim)
+    tc = make_cfg(registry.get_cfgs(TASK)[0], urdf, freeze_prep, **sim)
     if world is None:
         jw = jterrain.build_terrain(jc.terrain, seed=jc.seed)
         tw = tterrain.build_terrain(tc.terrain, seed=tc.seed)
@@ -106,16 +106,18 @@ def build_pair(urdf, freeze_prep, world):
 
 
 def to_port_state(js, tenv) -> EnvState:
-    """The reference's state field by field; the contact planes (which the
-    reference's XLA path does not carry) from the port's sampler."""
+    """The reference's state field by field; on the kernel path the contact
+    planes (which the reference's XLA path does not carry) from the port's
+    sampler."""
     def t(x, dtype=None):
         return None if x is None else torch.as_tensor(np.array(x), dtype=dtype)
 
     phys = PhysState(*(t(x) for x in js.phys))
     skip = ("phys", "common_step", "terrain_planes")
     fields = {f: t(getattr(js, f)) for f in EnvState._fields if f not in skip}
+    planes = tenv.contact_planes(phys) if tenv.kernel_planes else None
     return EnvState(phys=phys, common_step=t(js.common_step, torch.int64),
-                    terrain_planes=tenv.contact_planes(phys), **fields)
+                    terrain_planes=planes, **fields)
 
 
 def run_pair(jenv, tenv, js, steps, actions, key0):
@@ -204,6 +206,47 @@ def test_curriculum_world_tracks_reference(curriculum):
     assert dz < 0.01, dz
     for j, jo, t, to in out:
         np.testing.assert_array_equal(to.reset.numpy(), np.asarray(jo.reset))
+
+
+@pytest.fixture(scope="module")
+def engine_world(urdf):
+    """The engine path (use_pallas_substep=False) on the task's generated
+    world with all its randomizations: both envs sample the heightfield at
+    every substep and build the PGS prep every substep (the reference
+    ignores the task's pgs_freeze_prep there). The robots stand 0.91 m
+    above the ground under their base, so that their feet land."""
+    jenv, tenv = build_pair(urdf, True, None, use_pallas_substep=False)
+    js = jenv.initial_state(jax.random.PRNGKey(5))
+    bp = np.array(js.phys.base_pos)
+    bp[:, 2] = np.asarray(jenv.terrain.sample(jnp.asarray(bp[:, 0:2]))) + 0.91
+    js = js._replace(phys=js.phys._replace(base_pos=jnp.asarray(bp)))
+    rng = np.random.default_rng(4)
+    acts = [rng.uniform(-0.5, 0.5, (N, 12)).astype(np.float32) for _ in range(5)]
+    _, out = run_pair(jenv, tenv, js, 5, lambda i: acts[i], 300)
+    return jenv, tenv, out
+
+
+@pytest.mark.parametrize("k", range(5))
+def test_engine_path_step_matches_reference_on_curriculum_world(engine_world, k):
+    _, tenv, out = engine_world
+    js, jo, ts, to = out[k]
+    np.testing.assert_array_equal(to.reset.numpy(), np.asarray(jo.reset))
+    np.testing.assert_allclose(to.obs.numpy(), np.asarray(jo.obs), atol=ATOL)
+    np.testing.assert_allclose(to.privileged_obs.numpy(), np.asarray(jo.privileged_obs), atol=ATOL)
+    np.testing.assert_allclose(to.rew.numpy(), np.asarray(jo.rew), atol=ATOL)
+    assert ts.terrain_planes is None and tenv.physics.launches == 0
+
+
+def test_engine_path_on_curriculum_world_lands_and_scans(engine_world):
+    jenv, tenv, out = engine_world
+    js, _, ts, to = out[-1]
+    sums_t, sums_j = ts.episode_sums.numpy(), np.asarray(js.episode_sums)
+    for i, name in enumerate(tenv.reward_names):
+        np.testing.assert_allclose(sums_t[:, i], sums_j[:, i], atol=ATOL, err_msg=name)
+    contact = to.privileged_obs[:, -187 - 2:-187]
+    assert float(contact.amax(dim=1).min()) == 1.0
+    # the scan sees relief under some of the robots
+    assert float(to.privileged_obs[:, -187:].std(dim=1).max()) > 0.01
 
 
 def _reference_planes(jenv, xy):

@@ -233,3 +233,74 @@ def test_penalty_point_forces_match_reference():
                                      tcontact.ContactParams())
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(tfn.numpy(), np.asarray(jfn), rtol=1e-5, atol=1e-3)
+
+
+def _contact_inputs(models, seed):
+    """Standing bodies (the reference's FK and velocities) and a per-env
+    friction; the sole corners' median height is foot_z."""
+    jm, _, _ = models
+    jp, jq, jv = _standing_kinematics(models, seed)
+    pt_body, pt_off = jm.contact_points()
+    corners = _t(np.asarray(jp)[:, pt_body]) + tsp.quat_rotate(
+        _t(np.asarray(jq)[:, pt_body]), _t(np.asarray(pt_off, np.float32)))
+    foot_z = float(corners[..., 2].median())
+    mu = np.random.default_rng(seed).uniform(0.1, 2.0, N).astype(np.float32)
+    return jp, jq, jv, mu, foot_z
+
+
+@pytest.mark.parametrize("ground", ["flat", "heightfield"])
+def test_contact_forces_match_reference(models, ground):
+    """The penalty model on every sole corner and termination sphere vs
+    the reference's contact_forces. Flat: the robots lowered so that their
+    soles are 2 mm into the plane z = 0 (vertical forces). Heightfield: a
+    surface at the soles' height with +-3 mm of random relief per 0.1 m cell
+    (forces along the sampled normal); some corners are in, some out."""
+    jm, tm, rt = models
+    jp, jq, jv, mu, foot_z = _contact_inputs(models, 3)
+    if ground == "flat":
+        jp = np.asarray(jp) - np.array([0.0, 0.0, foot_z + 0.002], np.float32)
+        jt, tt = jcontact.Terrain.plane(), tcontact.Terrain.plane()
+    else:
+        rng = np.random.default_rng(8)
+        height = (foot_z + rng.uniform(-0.003, 0.003, (101, 101))).astype(np.float32)
+        jt = jcontact.Terrain(height=jax.numpy.asarray(height), horizontal_scale=0.1, border=5.0,
+                              flat=False)
+        tt = tcontact.Terrain.heightfield(height, 0.1, 5.0)
+    params = jcontact.ContactParams()
+    ref = jax.vmap(lambda p, q, v, m: jcontact.contact_forces(jm, p, q, v, jt, m, params))(
+        jp, jq, jv, mu)
+    out = tcontact.contact_forces(rt, _t(jp), _t(jq), _t(jv), tt, _t(mu),
+                                  tcontact.ContactParams())
+    weight = tm.total_mass * 9.81
+    np.testing.assert_allclose(out.point_forces.numpy(), np.asarray(ref.point_forces), rtol=1e-4,
+                               atol=1e-4 * weight)
+    np.testing.assert_allclose(out.term_force.numpy(), np.asarray(ref.term_force), atol=1e-3)
+    np.testing.assert_allclose(out.tau_gen.numpy(), np.asarray(ref.tau_gen), rtol=1e-4,
+                               atol=1e-4 * weight)
+    fz = out.point_forces[..., 2]
+    assert float(fz.max()) > 10.0
+    if ground == "heightfield":
+        assert float((fz == 0).float().mean()) > 0.05          # some corners are out
+        assert float(out.point_forces[..., 0:2].abs().max()) > 1.0
+
+
+def test_contact_forces_with_planes_match_terrain_on_a_ramp(models):
+    """`planes` (the kernel's ground) on an exactly linear ramp gives the
+    same forces as the ramp's heightfield sampled at the points."""
+    jm, tm, rt = models
+    jp, jq, jv, mu, foot_z = _contact_inputs(models, 4)
+    i = np.arange(101)[:, None]
+    j = np.arange(101)[None, :]
+    c0 = foot_z + 0.002
+    height = (c0 + 0.005 * (i - j)).astype(np.float32)   # c0 + 0.05 x - 0.05 y
+    terrain = tcontact.Terrain.heightfield(height, 0.1, 5.0)
+    P = len(rt.point_body)
+    planes = torch.tensor(np.tile([c0, 0.05, -0.05], (N, P)), dtype=torch.float32)
+    args = (rt, _t(jp), _t(jq), _t(jv))
+    a = tcontact.contact_forces(*args, terrain, _t(mu), tcontact.ContactParams())
+    b = tcontact.contact_forces(*args, tcontact.Terrain.plane(), _t(mu),
+                                tcontact.ContactParams(), planes=planes)
+    weight = tm.total_mass * 9.81
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-4, atol=1e-4 * weight)
+    assert float(a.point_forces[..., 2].max()) > 10.0
