@@ -8,17 +8,21 @@ Cholesky kernels from humanoid_tpu_torch/csrc with nvcc (one nvcc per
 source, started together), holds each kernel against its plain PyTorch
 version at 4096 envs (first the Cholesky factor, apply and solve on the
 settled robots' mass matrices and on random SPD matrices; then the control
-step on PGS contact without and with its gains, body and planes inputs, and
-on penalty contact, whose plain version runs the plain Cholesky; the
-sampler on the full humanoid_ppo_terrain world; controls show that the
-bounds fail when the plain version drops an input), then drives every
-physics path at 4096 envs: `humanoid_ppo`, `humanoid_ppo_terrain` and
-`humanoid_ppo_penalty` for 3 iterations each on the fused kernel, through
-scripts.train.main, and the engine path (`sim.use_pallas_substep=False`)
-for 1 iteration each of `humanoid_ppo`, `humanoid_ppo_terrain` and
-`humanoid_ppo_penalty` with an unfrozen factor, through
-registry.make_env(env_cfg=...) and make_alg_runner. Each path's kernel
-launches per iteration are checked. Then it times the kernels. Each phase
+step on PGS contact without and with its gains, body and planes inputs, on
+penalty contact, whose plain version runs the plain Cholesky, and on
+warm-started PGS; the sampler on the full humanoid_ppo_terrain world;
+controls show that the bounds fail when the plain version drops an input
+or starts cold), then drives every physics path: at 4096 envs
+`humanoid_ppo`, `humanoid_ppo_terrain` and `humanoid_ppo_penalty` for 3
+iterations each on the fused kernel, through scripts.train.main, then
+`humanoid_ppo` on the warm6 solver (frozen prep, 6 warm-started sweeps),
+`humanoid_ppo_robust` and `humanoid_ppo_envelope` for 3 iterations each,
+`humanoid_ppo_trimesh` for 1, and `humanoid_ppo_8k` for 1 at 8192 envs;
+and the engine path (`sim.use_pallas_substep=False`) for 1 iteration each
+of `humanoid_ppo`, `humanoid_ppo_terrain` and `humanoid_ppo_penalty` with
+an unfrozen factor, through registry.make_env(env_cfg=...) and
+make_alg_runner. Each path's kernel launches per iteration are checked.
+Then it times the kernels. Each phase
 prints one JSON line before the next begins; a phase that fails raises and
 the script exits non-zero. The last three lines are the card's name and
 power limit, the kernel table, and {"ok": true, "device": ...}. Without a
@@ -60,6 +64,8 @@ TOL_SETTLED = 4e-6
 MAX_COND = 1e5
 TIMED_LINALG = 200
 RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands on
+# the reference's round-4 "warm6" solver: frozen prep and 6 warm-started sweeps
+WARM6 = {"pgs_freeze_prep": True, "pgs_iterations": 6, "pgs_warm_start": True}
 SAMPLER_OPS_PER_SCAN, SAMPLER_OPS_PER_CONTACT = 13, 16
 
 
@@ -126,6 +132,15 @@ def pressed(inputs):
     return (pack,) + tuple(inputs[1:])
 
 
+def dropped(inputs, nj):
+    """The settled robots lifted 2 mm and falling at 0.3 m/s: their soles
+    land within the control step, so the impulses build up over substeps."""
+    pack = inputs[0].clone()
+    pack[2] += 2e-3
+    pack[7 + nj + 5] = -0.3          # the base's vertical velocity
+    return (pack,) + tuple(inputs[1:])
+
+
 def random_extras(model, kp, kd, seed=1):
     """Per-env gains (N, 3 nj) and bodies (N, 9 nb) in the ranges of the
     reference's domain randomization, and the motor offsets (N, nj)."""
@@ -176,16 +191,18 @@ def random_near_ground(model, seed=7):
     return pack_state(phys), t32(rng.uniform(-0.3, 0.3, (N, model.nj))), t32(planes)
 
 
-def compare(kernel, model, inputs, decimation, freeze, freeze_prep, drop=None, **extras):
+def compare(kernel, model, inputs, decimation, freeze, freeze_prep, drop=None, plain_of=None,
+            **extras):
     """Kernel vs plain version on the same inputs; with `drop`, the plain
-    version runs without that optional input (a control: the bounds must
-    then fail)."""
+    version runs without that optional input, with `plain_of` it is that
+    wrapper's (controls: the bounds must then fail)."""
     import torch
 
     pack, masses, friction, targets = inputs
     a, da = kernel(pack, masses, friction, targets, decimation, freeze, freeze_prep, **extras)
-    b, db = kernel.plain(pack, masses, friction, targets, decimation, freeze, freeze_prep,
-                         **{k: v for k, v in extras.items() if k != drop})
+    b, db = (plain_of or kernel).plain(pack, masses, friction, targets, decimation, freeze,
+                                       freeze_prep,
+                                       **{k: v for k, v in extras.items() if k != drop})
     torch.cuda.synchronize()
     nj = model.nj
     du = (a[7 + nj:] - b[7 + nj:]).abs().amax(dim=0)                  # per env
@@ -238,10 +255,10 @@ def sampler_points(env, seed=3):
     return scan.contiguous(), con.contiguous()
 
 
-def train_phase(train, registry, task, iterations, log_name, sim=None):
-    """Train `task` at 4096 envs: through scripts.train.main, or, with `sim`
-    overrides of its SimCfg, through registry.make_env(env_cfg=...) and
-    make_alg_runner. The env and its wrappers are new, so every count
+def train_phase(train, registry, task, iterations, log_name, sim=None, n_envs=N):
+    """Train `task` at n_envs envs: through scripts.train.main, or, with
+    `sim` overrides of its SimCfg, through registry.make_env(env_cfg=...)
+    and make_alg_runner. The env and its wrappers are new, so every count
     starts at 0. Returns (runner, carry, rows, peak)."""
     import dataclasses
 
@@ -255,18 +272,20 @@ def train_phase(train, registry, task, iterations, log_name, sim=None):
                "update_s": m.update_s, "mean_reward": float(m.mean_step_reward),
                "value_loss": float(m.update.value_loss),
                "surrogate_loss": float(m.update.surrogate_loss),
-               "kl": float(m.update.kl), "kernel_launches": m.kernel_launches,
+               "kl": float(m.update.kl), "sym_loss": float(m.update.sym_loss),
+               "kernel_launches": m.kernel_launches,
                "sampler_launches": m.sampler_launches, "factor_launches": m.factor_launches,
                "apply_launches": m.apply_launches, "solve_launches": m.solve_launches}
         emit(log_name, task=task, sim=sim or {}, **row)
         rows.append(row)
 
     if sim is None:
-        runner, carry = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
-                                    str(iterations), "--device", DEVICE], log_fn=log_fn)
+        runner, carry = train.main(["--task", task, "--num-envs", str(n_envs),
+                                    "--max-iterations", str(iterations), "--device", DEVICE],
+                                   log_fn=log_fn)
     else:
         cfg, _ = registry.get_cfgs(task)
-        cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=N),
+        cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=n_envs),
                           sim=dataclasses.replace(cfg.sim, **sim))
         env, _, train_cfg = registry.make_env(task, device=DEVICE, env_cfg=cfg)
         runner = registry.make_alg_runner(env, train_cfg)
@@ -274,14 +293,17 @@ def train_phase(train, registry, task, iterations, log_name, sim=None):
     return runner, carry, rows, torch.cuda.max_memory_allocated()
 
 
-def check_training(task, runner, carry, rows, env_cfg, iterations, expect):
-    """Finite losses, parameters and observations of the right shapes, and
-    exactly the expected launches of each kernel in every iteration."""
+def check_training(task, runner, carry, rows, env_cfg, iterations, expect, n_envs=N):
+    """Finite losses (the symmetry loss too, positive where the task has
+    it), parameters and observations of the right shapes, and exactly the
+    expected launches of each kernel in every iteration."""
     import numpy as np
     import torch
 
-    losses_finite = all(np.isfinite([r["value_loss"], r["surrogate_loss"], r["kl"]]).all()
-                        for r in rows)
+    losses_finite = all(np.isfinite([r["value_loss"], r["surrogate_loss"], r["kl"],
+                                     r["sym_loss"]]).all() for r in rows)
+    if runner.cfg.algorithm.sym_loss and not all(r["sym_loss"] > 0 for r in rows):
+        raise AssertionError(f"{task}: the symmetry loss is on but reads 0: {rows}")
     params_finite = all(bool(torch.isfinite(p).all()) for p in runner.net.parameters())
     obs_finite = bool(torch.isfinite(carry.obs).all() and torch.isfinite(carry.critic_obs).all())
     shapes = [tuple(carry.obs.shape), tuple(carry.critic_obs.shape)]
@@ -289,7 +311,8 @@ def check_training(task, runner, carry, rows, env_cfg, iterations, expect):
         raise AssertionError(f"{task}: expected {expect} launches per iteration: {rows}")
     if not (losses_finite and params_finite and obs_finite):
         raise AssertionError(f"{task}: training produced non-finite numbers")
-    if shapes != [(N, env_cfg.env.num_observations), (N, env_cfg.env.num_privileged_obs)]:
+    if shapes != [(n_envs, env_cfg.env.num_observations),
+                  (n_envs, env_cfg.env.num_privileged_obs)]:
         raise AssertionError(f"{task}: unexpected observation shapes {shapes}")
     return {"losses_finite": losses_finite, "params_finite": params_finite,
             "obs_finite": obs_finite, "obs_shapes": shapes}
@@ -516,6 +539,27 @@ def main():
         raise AssertionError(f"penalty: the bounds do not see the missing planes: {control}")
     results["penalty"] = penalty["flat_pressed_shipping"]
 
+    # ---- 3e. the warm-started PGS instance vs plain; control: the cold
+    # plain version must fall outside the bounds, in the pressed state or,
+    # failing that, in a short drop onto the ground ----
+    wprobe = ControlStepKernel(model, *probe.gains, probe.contact_params,
+                               probe.pgs_params._replace(warm_start=True), probe.dt)
+    for state_name, inputs in (("pressed_1mm", on_flat), ("drop", dropped(settled, model.nj))):
+        warm = {"shipping": compare(wprobe, model, inputs, 10, True, True),
+                "unfrozen": compare(wprobe, model, inputs, 10, False, False)}
+        control = compare(wprobe, model, inputs, 10, True, True, plain_of=probe)
+        emit("warm_compare", envs=N, state=state_name, sweeps=sweeps,
+             tolerance={"du": TOL_DU, "base_pos": TOL_POS,
+                        "foot_force_over_weight": TOL_FOOT_FRACTION},
+             **warm, control_cold_plain=control)
+        for name, r in warm.items():
+            check_within(f"warm {name} ({state_name})", r)
+        if not within(control):
+            break
+    else:
+        raise AssertionError(f"warm: the bounds do not tell the cold plain version: {control}")
+    results["warm"] = warm["shipping"]
+
     # ---- 4. the main paths: every physics path, each with its kernels ----
     S = STEPS_PER_ITERATION
     D = env_cfg.control.decimation
@@ -528,6 +572,13 @@ def main():
          {"kernel_launches": S, "sampler_launches": S}),
         ("humanoid_ppo_penalty", "humanoid_ppo_penalty", None, ITERATIONS,
          {"kernel_launches": S}),
+        ("humanoid_ppo warm6", "humanoid_ppo", WARM6, ITERATIONS, {"kernel_launches": S}),
+        ("humanoid_ppo_robust", "humanoid_ppo_robust", None, ITERATIONS, {"kernel_launches": S}),
+        ("humanoid_ppo_envelope", "humanoid_ppo_envelope", None, ITERATIONS,
+         {"kernel_launches": S}),
+        ("humanoid_ppo_trimesh", "humanoid_ppo_trimesh", None, 1,
+         {"kernel_launches": S, "sampler_launches": S}),
+        ("humanoid_ppo_8k", "humanoid_ppo_8k", None, 1, {"kernel_launches": S}),
         ("humanoid_ppo engine", "humanoid_ppo", engine_pgs, 1,
          {"factor_launches": S, "apply_launches": S * D}),
         ("humanoid_ppo_terrain engine", "humanoid_ppo_terrain", engine_pgs, 1,
@@ -539,11 +590,12 @@ def main():
     launches, summaries = {}, {}
     for path, task, sim, iterations, nonzero in paths:
         t_path = time.perf_counter()
-        runner, carry, rows, peak = train_phase(train, registry, task, iterations,
-                                                "train_iteration", sim)
         cfg, _ = registry.get_cfgs(task)
+        n_envs = N * cfg.env.num_envs // 4096      # the task's count: humanoid_ppo_8k 2 N
+        runner, carry, rows, peak = train_phase(train, registry, task, iterations,
+                                                "train_iteration", sim, n_envs)
         expect = {**zero, **nonzero}
-        checks = check_training(path, runner, carry, rows, cfg, iterations, expect)
+        checks = check_training(path, runner, carry, rows, cfg, iterations, expect, n_envs)
         env_ = runner.env
         launches[path] = {
             "control_step_kernel": env_.physics.launches,
@@ -552,7 +604,10 @@ def main():
                for k in ("factor", "apply", "solve")}}
         steady = rows[1:] if len(rows) > 1 else rows
         summaries[path] = {
-            "task": task, "sim": sim or {}, "iterations": len(rows), "launches": launches[path],
+            "task": task, "sim": sim or {}, "envs": n_envs, "iterations": len(rows),
+            "launches": launches[path],
+            "warm_start": bool(env_.physics.pgs_params is not None
+                               and env_.physics.pgs_params.warm_start),
             "launches_per_iteration": expect, "peak_bytes": peak,
             "wall_s": time.perf_counter() - t_path,
             "steady_env_steps_per_s": sum(r["env_steps_per_s"] for r in steady) / len(steady),
@@ -580,6 +635,7 @@ def main():
         "extras": (probe, (rpack, rmasses, rfriction, rtargets), (10, True, True),
                    {"gains": gains, "body": body, "planes": planes}),
         "penalty": (pprobe, (pack, masses, friction, targets), (10, True, True), {}),
+        "warm": (wprobe, (pack, masses, friction, targets), (10, True, True), {}),
     }
     for name, (k, inputs, args, kw) in instances.items():
         def run_kernel():
@@ -600,6 +656,13 @@ def main():
         timing[name] = {"ms": ms, "plain_ms": plain_ms,
                         **bound(ops, launch_bytes(model, N, **flags))}
         emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
+    # the warm and the shipping instance in turns (shipping, warm, warm,
+    # shipping): does the carry cost time?
+    turns = []
+    for name in ("shipping", "warm", "warm", "shipping"):
+        k, inputs, args, _ = instances[name]
+        turns.append([name, cuda_ms(lambda: k(*inputs, *args), TIMED_LAUNCHES)])
+    emit("warm_vs_shipping_time", launches_timed=TIMED_LAUNCHES, turns=turns)
 
     def run_sampler():
         sprobe(scan_xy, con_xy)
@@ -691,6 +754,11 @@ def main():
                 "pgs=0 decimation=10 freeze=1", results["penalty"]["max_abs_err"],
                 timing["penalty"], launches=cs_launches["humanoid_ppo_penalty"],
                 replaces="humanoid_tpu/ops/physics_kernel.py:719"),
+            "warm_instance": row(
+                f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps} warm=1",
+                results["warm"]["max_abs_err"], timing["warm"],
+                launches=cs_launches["humanoid_ppo warm6"],
+                replaces="humanoid_tpu/ops/physics_kernel.py:891"),
         },
         {
             "name": "terrain_sampler_kernel", "route": "cuda",

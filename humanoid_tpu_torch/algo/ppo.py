@@ -1,6 +1,7 @@
 """Clipped-surrogate PPO update with the adaptive-KL learning rate, clipped
-value loss, entropy bonus and the auxiliary velocity-estimator loss: port
-of the reference package's algo/ppo.py.
+value loss, entropy bonus, the auxiliary velocity-estimator loss and,
+when the config asks for it, the mirror-symmetry loss: port of the
+reference package's algo/ppo.py.
 
 Gradients are clipped by their global norm, then scaled by Adam (optax's
 clip_by_global_norm + scale_by_adam, written out here), then by the
@@ -10,7 +11,7 @@ drawn per update and reused by every epoch.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +36,7 @@ class UpdateMetrics(NamedTuple):
     value_loss: torch.Tensor
     surrogate_loss: torch.Tensor
     vel_loss: torch.Tensor
+    sym_loss: torch.Tensor
     kl: torch.Tensor
     lr: torch.Tensor
 
@@ -78,19 +80,30 @@ def tile_permutation(B: int, cfg: AlgorithmCfg, gen: torch.Generator, device) ->
     return (tiles[:, None] * g + torch.arange(g, device=device)).reshape(-1)
 
 
+def symmetry_loss(net: ActorCritic, obs, mean, obs_perm, act_perm):
+    """mean((mu(obs) - mirror(mu(mirror(obs))))^2): the actor's mean action
+    against the mirror of its action on the mirrored observation. The
+    mirror is exact in the stored dtype (one signed entry per column)."""
+    mirrored = net.act_mean(obs.float() @ obs_perm) @ act_perm
+    return torch.mean(torch.square(mean - mirrored))
+
+
 def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
-               perm: torch.Tensor, vel_slice: Tuple[int, int]) -> UpdateMetrics:
+               perm: torch.Tensor, vel_slice: Tuple[int, int],
+               obs_perm: Optional[torch.Tensor] = None,
+               act_perm: Optional[torch.Tensor] = None) -> UpdateMetrics:
     """num_learning_epochs x num_mini_batches gradient steps over `batch`
-    in the row order `perm` (see tile_permutation)."""
-    if cfg.sym_loss:
-        raise NotImplementedError("the mirror-symmetry loss is not ported yet")
+    in the row order `perm` (see tile_permutation). With cfg.sym_loss and
+    the mirror matrices (algo/symmetry.py: obs_perm over the stacked actor
+    obs, act_perm over the actions), the loss adds
+    sym_coef * mean((mu(obs) - mirror(mu(mirror(obs))))^2)."""
     B = batch.obs.shape[0]
     nmb = cfg.num_mini_batches
     mb = B // nmb
     idx = perm[: mb * nmb].reshape(nmb, mb)
     vlo, vhi = vel_slice
     params = list(net.parameters())
-    sums = torch.zeros(4, device=batch.obs.device)
+    sums = torch.zeros(5, device=batch.obs.device)
     for _ in range(cfg.num_learning_epochs):
         for j in range(nmb):
             m = Batch(*(x[idx[j]] for x in batch))
@@ -111,8 +124,13 @@ def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
             else:
                 value_loss = torch.mean(torch.square(m.returns - value))
             vel_loss = torch.mean(torch.square(vel - m.critic_obs[:, vlo:vhi].float()))
+            if cfg.sym_loss and obs_perm is not None:
+                sym_loss = symmetry_loss(net, m.obs, mean, obs_perm, act_perm)
+            else:
+                sym_loss = torch.zeros((), device=mean.device)
             loss = (surrogate_loss + cfg.value_loss_coef * value_loss
-                    - cfg.entropy_coef * torch.mean(ent) + cfg.base_lin_vel_coef * vel_loss)
+                    - cfg.entropy_coef * torch.mean(ent) + cfg.sym_coef * sym_loss
+                    + cfg.base_lin_vel_coef * vel_loss)
             grads = torch.autograd.grad(loss, params)
             if cfg.schedule == "adaptive" and cfg.desired_kl is not None:
                 lr = opt.lr
@@ -123,7 +141,8 @@ def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
                 opt.lr = lr
             opt.step(grads)
             sums += torch.stack([value_loss.detach(), surrogate_loss.detach(),
-                                 vel_loss.detach(), kl])
+                                 vel_loss.detach(), sym_loss.detach(), kl])
     n = cfg.num_learning_epochs * nmb
-    v, s, vel, kl = (sums / n).unbind()
-    return UpdateMetrics(value_loss=v, surrogate_loss=s, vel_loss=vel, kl=kl, lr=opt.lr)
+    v, s, vel, sym, kl = (sums / n).unbind()
+    return UpdateMetrics(value_loss=v, surrogate_loss=s, vel_loss=vel, sym_loss=sym, kl=kl,
+                         lr=opt.lr)

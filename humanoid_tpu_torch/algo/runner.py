@@ -67,6 +67,14 @@ class OnPolicyRunner:
         self.opt = Adam(list(self.net.parameters()), acfg.max_grad_norm, acfg.learning_rate)
         lo = 5 + 4 * ecfg.num_actions   # base_lin_vel slice of the oldest critic frame
         self.vel_slice = (lo, lo + 3)
+        # the mirror matrices of the symmetry loss, built only when it is on
+        self.obs_perm = self.act_perm = None
+        if acfg.sym_loss:
+            from .symmetry import xbot_perm_matrices
+
+            obs_perm, act_perm = xbot_perm_matrices(ecfg.frame_stack, ecfg.num_actions)
+            self.obs_perm = torch.as_tensor(obs_perm, device=self.device)
+            self.act_perm = torch.as_tensor(act_perm, device=self.device)
         self.iteration = 0
 
     def _sampler_launches(self) -> int:
@@ -155,7 +163,8 @@ class OnPolicyRunner:
                 advantages=norm_adv.reshape(-1), returns=returns.reshape(-1),
             )
             perm = tile_permutation(T * N, acfg, self.gen, dev)
-        update = ppo_update(net, acfg, self.opt, batch, perm, self.vel_slice)
+        update = ppo_update(net, acfg, self.opt, batch, perm, self.vel_slice, self.obs_perm,
+                            self.act_perm)
         self._sync()
         t2 = time.perf_counter()
         self.iteration += 1

@@ -1,10 +1,13 @@
-// One 100 Hz control step of the humanoid physics as one CUDA kernel.
+// One 100 Hz control step of the humanoid physics as one CUDA kernel launch.
 //
 // Replaces the TPU kernel humanoid_tpu/ops/physics_kernel.py::_control_kernel
-// (built by build_control_fn) on both of its contact models, chosen by the
-// runtime flag `pgs`:
-//   pgs = 1: block-PGS foot contact from a cold start and penalty
-//            termination spheres (the kernel built with pgs_params);
+// (built by build_control_fn) on both of its contact models, chosen at launch
+// by the flags `pgs` and `warm` (one compiled kernel per instance):
+//   pgs = 1: block-PGS foot contact and penalty termination spheres (the
+//            kernel built with pgs_params); each substep's sweep starts
+//            from zero impulses, or, with the flag `warm` (pgs_warm_start,
+//            the reference's lines 891-906), from the previous substep's,
+//            carried through the substep loop from zeros at its entry;
 //   pgs = 0: the penalty model on every contact point, sole corners and
 //            termination spheres alike, summed into the generalized force,
 //            then one solve with the mass-matrix factor (pgs_params=None:
@@ -475,7 +478,7 @@ struct EnvExtras {
 // One substep from the thread's state, with PGS or penalty foot contact;
 // `prep` rebuilds the contact rows and Delassus operator, `factor` the
 // mass-matrix factor.
-template <bool PGS>
+template <bool PGS, bool WARM>
 HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
                 const float* mass, float mu, const float* targets, const EnvExtras& x,
                 bool factor, bool prep, int iterations, Work& W) {
@@ -540,7 +543,7 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
     float s = 0.0f;
     for (int i = 0; i < nv; ++i) s += W.J[r][i] * W.ufree[i];
     W.vf[r] = s;
-    W.lam[r] = 0.0f;
+    if (!WARM) W.lam[r] = 0.0f;   // warm: the sweep starts from the carried W.lam
   }
   for (int it = 0; it < iterations; ++it) {
     for (int k = 0; k < K; ++k) {
@@ -608,7 +611,7 @@ HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float*
 // A whole control step for env n. State rows: [pos 3, quat 4, qj nj, u nv];
 // diag rows: body pos (3 nb), body quat (4 nb), body omega (3 nb), foot
 // forces (3 n_feet), termination forces (n_term), torques (nj).
-template <bool PGS>
+template <bool PGS, bool WARM>
 HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
                           const float* masses, const float* friction, const float* targets,
                           const float* gains, const float* body, const float* planes,
@@ -634,8 +637,11 @@ HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
     crba_chol(m, W);
     if (frozen_prep) pgs_prepare(m, x.planes, W);
   }
+  if (WARM)
+    for (int r = 0; r < 3 * m.n_fpts; ++r) W.lam[r] = 0.0f;   // the carry starts at zero
   for (int s = 0; s < decimation; ++s)
-    substep<PGS>(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, PGS && !frozen_prep, iterations, W);
+    substep<PGS, WARM>(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, PGS && !frozen_prep,
+                       iterations, W);
 
   int row = 0;
   for (int i = 0; i < 3; ++i) state_out[(row++) * N + n] = bp[i];
@@ -655,34 +661,44 @@ HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
   for (int k = 0; k < nj; ++k) diag[(row++) * N + n] = W.tau[k];
 }
 
-// The contact model is a template argument, so that each instance carries
-// only its own code: with the flag tested inside the substep, the PGS
-// instance ran slower than before the penalty path existed (PERF.md).
+// The contact model and the warm start are template arguments, so that
+// each instance carries only its own code: with the contact model tested
+// inside the substep, the PGS instance ran slower than before the penalty
+// path existed (PERF.md). The kernel launches one instance; this dispatch
+// serves a host build of the per-env step.
 HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
                          const float* masses, const float* friction, const float* targets,
                          const float* gains, const float* body, const float* planes,
-                         float* state_out, float* diag, int decimation, bool pgs,
+                         float* state_out, float* diag, int decimation, bool pgs, bool warm,
                          bool freeze, bool freeze_prep, int iterations, Work& W) {
-  if (pgs)
-    control_step_impl<true>(m, n, N, state, masses, friction, targets, gains, body, planes,
-                            state_out, diag, decimation, freeze, freeze_prep, iterations, W);
+  if (pgs && warm)
+    control_step_impl<true, true>(m, n, N, state, masses, friction, targets, gains, body, planes,
+                                  state_out, diag, decimation, freeze, freeze_prep, iterations, W);
+  else if (pgs)
+    control_step_impl<true, false>(m, n, N, state, masses, friction, targets, gains, body,
+                                   planes, state_out, diag, decimation, freeze, freeze_prep,
+                                   iterations, W);
   else
-    control_step_impl<false>(m, n, N, state, masses, friction, targets, gains, body, planes,
-                             state_out, diag, decimation, freeze, freeze_prep, iterations, W);
+    control_step_impl<false, false>(m, n, N, state, masses, friction, targets, gains, body,
+                                    planes, state_out, diag, decimation, freeze, freeze_prep,
+                                    iterations, W);
 }
 
 #ifdef __CUDACC__
 
 #define THREADS 32  // one warp per block spreads 4096 envs over 128 SMs
 
+// One kernel per instance (contact model, warm start): each gets the
+// registers and stack of its own code only.
+template <bool PGS, bool WARM>
 __global__ void __launch_bounds__(THREADS)
 control_step_kernel(const float* __restrict__ state, const float* __restrict__ masses,
                     const float* __restrict__ friction, const float* __restrict__ targets,
                     const float* __restrict__ gains, const float* __restrict__ body,
                     const float* __restrict__ planes,
                     float* __restrict__ state_out, float* __restrict__ diag, int N,
-                    const ModelTable* __restrict__ table, int decimation, int pgs,
-                    int freeze, int freeze_prep, int iterations) {
+                    const ModelTable* __restrict__ table, int decimation, int freeze,
+                    int freeze_prep, int iterations) {
   __shared__ ModelTable sm;
   const int words = sizeof(ModelTable) / sizeof(int);
   for (int i = threadIdx.x; i < words; i += blockDim.x)
@@ -691,20 +707,24 @@ control_step_kernel(const float* __restrict__ state, const float* __restrict__ m
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   Work W;
-  control_step_env(sm, n, N, state, masses, friction, targets, gains, body, planes, state_out,
-                   diag, decimation, pgs != 0, freeze != 0, freeze_prep != 0, iterations, W);
+  control_step_impl<PGS, WARM>(sm, n, N, state, masses, friction, targets, gains, body, planes,
+                               state_out, diag, decimation, freeze != 0, freeze_prep != 0,
+                               iterations, W);
 }
 
 extern "C" int control_step_launch(const float* state, const float* masses,
                                    const float* friction, const float* targets,
                                    const float* gains, const float* body, const float* planes,
                                    float* state_out, float* diag, int N, const void* table,
-                                   int decimation, int pgs, int freeze, int freeze_prep,
-                                   int iterations, void* stream) {
+                                   int decimation, int pgs, int warm, int freeze,
+                                   int freeze_prep, int iterations, void* stream) {
   const int blocks = (N + THREADS - 1) / THREADS;
-  control_step_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = pgs ? (warm ? control_step_kernel<true, true>
+                                  : control_step_kernel<true, false>)
+                          : control_step_kernel<false, false>;
+  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       state, masses, friction, targets, gains, body, planes, state_out, diag, N,
-      static_cast<const ModelTable*>(table), decimation, pgs, freeze, freeze_prep, iterations);
+      static_cast<const ModelTable*>(table), decimation, freeze, freeze_prep, iterations);
   return static_cast<int>(cudaGetLastError());
 }
 

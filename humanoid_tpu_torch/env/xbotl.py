@@ -2,7 +2,9 @@
 package's env/xbotl.py with both contact models (block-PGS and penalty), on
 flat ground or a heightfield, with the reference's domain randomizations
 (friction, masses, COM and inertia, motor strength, offset and gains,
-action lag), the terrain curriculum and the height scan.
+action lag), the terrain curriculum, the height scan, and its command
+features: the stand/walk switch with its gait schedule (`sw_switch`), the
+command curriculum and the on-axis command practice (`axis_frac`).
 
 One `step` over an explicit EnvState, batched over envs, with the masked
 auto-reset inside it. Randomness comes from an explicit torch.Generator on
@@ -12,13 +14,15 @@ the env's device. The physics takes one of the reference's two paths, by
 - on (the default): the fused control step, ControlStepKernel, with PGS or
   penalty contact. On a heightfield the ground of a control step is one
   plane per contact point, sampled at its entry position by TerrainSampler
-  (the reference's kernel semantics), and `pgs_freeze_prep` is honoured.
+  (the reference's kernel semantics), and `pgs_freeze_prep` and
+  `pgs_warm_start` are honoured.
 - off: the reference's XLA engine path, physics/engine.py's
   control_step_pgs or control_step_batch, whose factor and solves are the
-  CUDA kernels of ops/linalg.py (the env's `cholesky`). The heightfield is sampled at every
-  substep, the PGS contact prep is built every substep from a cold start
-  (the reference ignores `pgs_freeze_prep` there), and the torque is the
-  reference's own function of the substep's state.
+  CUDA kernels of ops/linalg.py (the env's `cholesky`). The heightfield is
+  sampled at every substep, the PGS contact prep is built every substep and
+  every sweep starts cold (the reference ignores `pgs_freeze_prep` and
+  `pgs_warm_start` there, and warns), and the torque is the reference's own
+  function of the substep's state.
 
 The reference also takes its XLA path when num_envs is not a multiple of
 128 or the backend is not a TPU: both are limits of the TPU's tiles, which
@@ -35,6 +39,7 @@ height scan -> history and last_* updates -> obs clip.
 """
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -88,6 +93,12 @@ class EnvState(NamedTuple):
     kp_factors: Optional[torch.Tensor] = None       # (N, nj)
     kd_factors: Optional[torch.Tensor] = None       # (N, nj)
     lag_buffer: Optional[torch.Tensor] = None       # (N, L+1, nj) scaled actions, newest last
+    # the stand/walk switch and its gait schedule (sw_switch)
+    time_to_stand_still: Optional[torch.Tensor] = None  # (N,) steps of stand command at low speed
+    phase_length_buf: Optional[torch.Tensor] = None     # (N,) int32 gait phase counter
+    gait_start: Optional[torch.Tensor] = None           # (N,) phase offset, 0 or 0.5 cycles
+    gait_time: Optional[torch.Tensor] = None            # (N, n_gaits) int32 switch steps
+    cmd_x_range: Optional[torch.Tensor] = None          # (2,) lin_vel_x under the command curriculum
     terrain_planes: Optional[torch.Tensor] = None   # (N, 3P) next step's contact planes
 
 
@@ -104,18 +115,23 @@ class StepOutput(NamedTuple):
     rew_terms_mean: torch.Tensor     # (n_rew,) this-step mean per term
 
 
-def _unported(cfg: XBotLCfg):
-    """Config features of the reference env that the port does not have yet."""
-    c = cfg.commands
-    checks = {
-        "sim.pgs_warm_start": cfg.sim.pgs_warm_start,
-        "commands.sw_switch": c.sw_switch,
-        "commands.curriculum": c.curriculum,
-        "commands.axis_frac": c.axis_frac > 0.0,
-        "terrain.measure_heights on mesh_type 'plane'": (cfg.terrain.measure_heights
-                                                         and cfg.terrain.mesh_type == "plane"),
-    }
-    return [name for name, on in checks.items() if on]
+def _stretch(v, lo: float, hi: float):
+    """|v| mapped from [0, range] into [0.2, range] on its side of zero, so
+    that an on-axis command is never below the stand threshold."""
+    side = torch.where(v >= 0, torch.full_like(v, hi), torch.full_like(v, -lo))
+    m = 0.2 + v.abs() / torch.clamp(side, min=1e-6) * torch.clamp(side - 0.2, min=0.0)
+    return torch.sign(v) * m
+
+
+def axis_project(vx, vy, on_axis, sagittal, ranges):
+    """The on-axis command practice (CommandsCfg.axis_frac): where on_axis,
+    keep vx alone (sagittal) or vy alone, stretched into [0.2, range] of the
+    static ranges; elsewhere the box sample."""
+    vx = torch.where(on_axis & ~sagittal, 0.0,
+                     torch.where(on_axis, _stretch(vx, *ranges.lin_vel_x), vx))
+    vy = torch.where(on_axis & sagittal, 0.0,
+                     torch.where(on_axis, _stretch(vy, *ranges.lin_vel_y), vy))
+    return vx, vy
 
 
 def lag_push(lag_buffer, actions_scaled, idx):
@@ -137,9 +153,6 @@ class XBotLEnv:
 
     def __init__(self, cfg: XBotLCfg, urdf_path: str, device="cuda",
                  terrain: Optional[Terrain] = None, terrain_world=None):
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
         if cfg.sim.contact_model not in ("penalty", "pgs"):
             raise ValueError(f"unknown contact_model {cfg.sim.contact_model!r} (penalty | pgs)")
         if cfg.terrain.mesh_type not in ("plane", "heightfield", "trimesh"):
@@ -167,11 +180,18 @@ class XBotLEnv:
         self.contact_params = ContactParams(kn=s.contact_kn, cn=s.contact_cn,
                                             v_reg=s.contact_v_reg)
         self.pgs_params = (PGSParams(iterations=s.pgs_iterations, erp=s.pgs_erp,
-                                     cfm_ratio=s.pgs_cfm, slop=s.pgs_slop)
+                                     cfm_ratio=s.pgs_cfm, slop=s.pgs_slop,
+                                     warm_start=s.pgs_warm_start)
                            if s.contact_model == "pgs" else None)
         # the fused control step; off, the engine path (it then counts no
         # launch) with the Cholesky kernels (they count none on the kernel path)
         self.use_kernel = s.use_pallas_substep
+        if not self.use_kernel and self.pgs_params is not None and (s.pgs_freeze_prep
+                                                                    or s.pgs_warm_start):
+            logging.getLogger(__name__).warning(
+                "fused control-step kernel off (sim.use_pallas_substep=False): the engine "
+                "path runs. NOTE: pgs_freeze_prep/pgs_warm_start are kernel-only and are "
+                "ignored on this path (per-substep prep, cold start).")
         self.physics = ControlStepKernel(m, kp, kd, torque_limits, self.contact_params,
                                          self.pgs_params, s.dt)
         self.cholesky = CholeskyKernels()
@@ -229,6 +249,7 @@ class XBotLEnv:
         self.body_rand_on = dr.randomize_base_com or dr.randomize_inertia
         self.dof_rand_interval = int(np.ceil(dr.dof_rand_interval_s / self.dt))
         self.kp, self.kd, self.torque_limits = t(kp), t(kd), t(torque_limits)
+        self.sw_switch = cfg.commands.sw_switch
         self.resample_steps = int(cfg.commands.resampling_time / self.dt)
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.max_episode_length = cfg.max_episode_length
@@ -265,19 +286,22 @@ class XBotLEnv:
         v[8 + 3 * nj:11 + 3 * nj] = ns.quat * os_.quat
         return torch.as_tensor(v, device=self.device)
 
-    def _phase(self, episode_length):
-        return episode_length.float() * self.dt / self.cfg.rewards.cycle_time
+    def _phase(self, counter, gait_start=None):
+        """Gait phase in cycles: the episode length, or under sw_switch the
+        phase counter (frozen while standing) plus its half-cycle offset."""
+        phase = counter.float() * self.dt / self.cfg.rewards.cycle_time
+        return phase if gait_start is None else phase + gait_start
 
-    def _gait_masks(self, episode_length):
+    def _gait_masks(self, counter, gait_start=None):
         """(stance_mask (N,2), sin_pos (N,))."""
-        sin_pos = torch.sin(2 * math.pi * self._phase(episode_length))
+        sin_pos = torch.sin(2 * math.pi * self._phase(counter, gait_start))
         left = sin_pos >= 0
         stance = torch.stack([left, ~left], dim=-1).float()
         double = (torch.abs(sin_pos) < 0.1)[:, None]
         return torch.where(double, 1.0, stance), sin_pos
 
-    def _ref_dof_pos(self, episode_length):
-        _, sin_pos = self._gait_masks(episode_length)
+    def _ref_dof_pos(self, counter, gait_start=None):
+        _, sin_pos = self._gait_masks(counter, gait_start)
         ref = (torch.clamp(sin_pos, max=0.0)[:, None] * self._ref_l
                + torch.clamp(sin_pos, min=0.0)[:, None] * self._ref_r)
         double = (torch.abs(sin_pos) < 0.1)[:, None]
@@ -286,10 +310,16 @@ class XBotLEnv:
     def _uniform(self, gen, shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
 
-    def _sample_commands(self, gen, n):
+    def _sample_commands(self, gen, n, cmd_x_range=None):
+        """(n, 4) fresh commands; cmd_x_range (2,), under the command
+        curriculum, replaces the static lin_vel_x bounds."""
         cfg = self.cfg.commands
         r = cfg.ranges
-        vx = self._uniform(gen, (n,), *r.lin_vel_x)
+        if cmd_x_range is None:
+            vx = self._uniform(gen, (n,), *r.lin_vel_x)
+        else:
+            u = torch.rand((n,), generator=gen, device=self.device)
+            vx = cmd_x_range[0] + u * (cmd_x_range[1] - cmd_x_range[0])
         vy = self._uniform(gen, (n,), *r.lin_vel_y)
         if cfg.heading_command:
             heading = self._uniform(gen, (n,), *r.heading)
@@ -297,9 +327,36 @@ class XBotLEnv:
         else:
             heading = torch.zeros(n, device=self.device)
             wyaw = self._uniform(gen, (n,), *r.ang_vel_yaw)
+        if cfg.axis_frac > 0.0:
+            on_axis = torch.rand((n,), generator=gen, device=self.device) < cfg.axis_frac
+            sagittal = torch.rand((n,), generator=gen, device=self.device) < 0.5
+            vx, vy = axis_project(vx, vy, on_axis, sagittal, r)
         cmds = torch.stack([vx, vy, wyaw, heading], dim=-1)
         keep = (torch.linalg.vector_norm(cmds[:, 0:2], dim=1) > 0.2).float()
         return torch.cat([cmds[:, 0:2] * keep[:, None], cmds[:, 2:]], dim=1)
+
+    def _sample_gait_command(self, gen, n, gait, cmd_x_range=None):
+        """The gait schedule's command rules: stand -> zeros,
+        walk_omnidirectional -> the full ranges, walk_sagittal -> vy = 0,
+        walk_lateral -> vx = 0."""
+        if gait == "stand":
+            return torch.zeros(n, 4, device=self.device)
+        cmds = self._sample_commands(gen, n, cmd_x_range)
+        if gait == "walk_sagittal":
+            cmds[:, 1] = 0.0
+        elif gait == "walk_lateral":
+            cmds[:, 0] = 0.0
+        elif gait != "walk_omnidirectional":
+            raise ValueError(f"unknown gait {gait!r}")
+        return cmds
+
+    def _generate_gait_time(self, gen, n):
+        """(n, n_gaits) int32 switch steps, stratified: gait i switches in at
+        a random step of the i-th of n_gaits equal parts of the episode."""
+        n_g = len(self.cfg.commands.gait)
+        seg = self.max_episode_length // n_g
+        u = torch.randint(1, max(seg, 2), (n, n_g), generator=gen, device=self.device)
+        return (u + seg * torch.arange(n_g, device=self.device)).to(torch.int32)
 
     def _reset_phys(self, gen, n, env_origins):
         """Fresh state at the origins, with the xy jitter within 1 m of a
@@ -368,14 +425,19 @@ class XBotLEnv:
         body_pos, body_quat = fk(self._rt, phys.base_pos, phys.base_quat, phys.qj)
         return self._sample_terrain(phys, self._contact_xy(body_pos, body_quat))[1]
 
+    def _scan_xy(self, phys: PhysState):
+        """World xy (N, Ps, 2) of the height scan: the grid yaw-rotated
+        about the base."""
+        return (quat_apply_yaw(phys.base_quat[:, None, :], self.height_points[None])
+                + phys.base_pos[:, None, :])[..., 0:2]
+
     def _sample_terrain(self, phys: PhysState, con_xy):
         """One sampler call at the envs' current positions: the height scan
         (N, Ps) under the yaw-rotated scan grid (None without a scan) and
         the contact planes (N, 3P) [c0, gx, gy] at con_xy (N, P, 2)."""
         N = phys.base_pos.shape[0]
         if self.height_points is not None:
-            scan_xy = (quat_apply_yaw(phys.base_quat[:, None, :], self.height_points[None])
-                       + phys.base_pos[:, None, :])[..., 0:2]
+            scan_xy = self._scan_xy(phys)
         else:
             scan_xy = phys.base_pos.new_zeros(N, 0, 2)
         scan_h, corners = self.sampler(scan_xy.contiguous(), con_xy.contiguous())
@@ -512,6 +574,14 @@ class XBotLEnv:
             extra.update(motor_strengths=ms, motor_offsets=mo, kp_factors=kpf, kd_factors=kdf)
         if dr.randomize_lag_timesteps:
             extra["lag_buffer"] = z(N, dr.lag_timesteps + 1, self.nj)
+        if self.sw_switch:
+            extra.update(
+                time_to_stand_still=z(N), phase_length_buf=z(N, dtype=torch.int32),
+                gait_start=torch.randint(0, 2, (N,), generator=gen, device=dev).float() * 0.5,
+                gait_time=self._generate_gait_time(gen, N))
+        if cfg.commands.curriculum:
+            extra["cmd_x_range"] = torch.tensor(cfg.commands.ranges.lin_vel_x,
+                                                dtype=torch.float32, device=dev)
         phys = self._reset_phys(gen, N, env_origins)
         if self.kernel_planes:
             extra["terrain_planes"] = self.contact_planes(phys)
@@ -579,8 +649,32 @@ class XBotLEnv:
 
         # ---- resample commands / heading / push ----
         contact = diag.foot_forces[:, :, 2] > 5.0
-        resample = (episode_length % self.resample_steps) == 0
-        commands = torch.where(resample[:, None], self._sample_commands(gen, N), state.commands)
+        commands = state.commands
+        ttss, plb = state.time_to_stand_still, state.phase_length_buf
+        if self.sw_switch:
+            # the stand/walk switch: the stand timer counts steps of a stand
+            # command at low speed and restarts under a walk command (the
+            # deploy-side form the reference adopts, not the base class's,
+            # which makes standing absorbing once the phase freezes); each
+            # gait of the schedule switches its command in at its step
+            ccfg = cfg.commands
+            stand_cmd = torch.linalg.vector_norm(commands[:, 0:3], dim=1) <= ccfg.stand_com_threshold
+            low_speed = (torch.linalg.vector_norm(base_lin_vel[:, 0:2], dim=1) < 0.3).float()
+            ttss = torch.where(stand_cmd, (ttss + 1.0) * low_speed, 0.0)
+            double = (contact.float().sum(dim=1) == 2).float()
+            for i, gait in enumerate(ccfg.gait):
+                switch = episode_length == state.gait_time[:, i]
+                fresh = self._sample_gait_command(gen, N, gait, state.cmd_x_range)
+                commands = torch.where(switch[:, None], fresh, commands)
+                # a zero command with both feet down and low speed stands at once
+                still = (torch.linalg.vector_norm(commands[:, 0:3], dim=1) == 0.0).float()
+                ttss = torch.where(switch, ccfg.static_delay * double * still * low_speed, ttss)
+            # the phase counter freezes (restarts) while standing
+            plb = torch.where(ttss > ccfg.static_delay, 0, plb + 1)
+        else:
+            resample = (episode_length % self.resample_steps) == 0
+            commands = torch.where(resample[:, None],
+                                   self._sample_commands(gen, N, state.cmd_x_range), commands)
         if cfg.commands.heading_command:
             fwd = quat_rotate(base_quat, self._forward.expand(N, 3))
             heading = torch.atan2(fwd[:, 1], fwd[:, 0])
@@ -613,7 +707,10 @@ class XBotLEnv:
         # ---- 5. rewards (pre-reset state) ----
         m = self.model
         foot_pos = diag.body_pos[:, list(m.foot_bodies)]
-        stance_mask, _ = self._gait_masks(episode_length)
+        # the phase counter after the switch drives the stance target; the
+        # reference pose is the previous step's (the reference's one-step lag)
+        gs = state.gait_start
+        stance_mask, _ = self._gait_masks(plb if self.sw_switch else episode_length, gs)
         (air_time, first_contact, fh), (new_air, new_last_contacts, new_last_feet_z,
                                         new_feet_height) = gait_updates(
             contact, stance_mask, state.last_contacts, state.feet_air_time,
@@ -623,7 +720,8 @@ class XBotLEnv:
             dof_pos=phys.qj, dof_vel=phys.u[:, 6:], last_dof_vel=state.last_dof_vel,
             actions=actions, last_actions=state.last_actions,
             last_last_actions=state.last_last_actions, torques=diag.tau,
-            ref_dof_pos=self._ref_dof_pos(state.episode_length),
+            ref_dof_pos=self._ref_dof_pos(
+                state.phase_length_buf if self.sw_switch else state.episode_length, gs),
             default_dof_pos=self.default_dof_pos, base_pos=phys.base_pos,
             base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel, base_euler=base_euler,
             projected_gravity=projected_gravity, root_vel=root_vel,
@@ -664,6 +762,14 @@ class XBotLEnv:
         episode_length_out = torch.where(reset_buf, 0, episode_length).to(torch.int32)
         if dr.randomize_lag_timesteps:
             lag_buffer = torch.where(reset_buf[:, None, None], 0.0, lag_buffer)
+        gait_time = state.gait_time
+        if self.sw_switch:
+            ttss = torch.where(reset_buf, 0.0, ttss)
+            plb = torch.where(reset_buf, 0, plb)
+            gs = torch.where(reset_buf, torch.randint(0, 2, (N,), generator=gen,
+                                                      device=dev).float() * 0.5, gs)
+            gait_time = torch.where(reset_buf[:, None], self._generate_gait_time(gen, N),
+                                    gait_time)
         dof_rand = {}
         if self.dof_rand_on:
             # redrawn at reset and on the dof_rand_interval grid
@@ -676,20 +782,35 @@ class XBotLEnv:
         ep_rew_sums = torch.sum(episode_sums * rmask[:, None], dim=0)
         ep_count = torch.sum(rmask)
         ep_len_sum = torch.sum(episode_length * reset_buf)
+        cmd_x_range = state.cmd_x_range
+        if cfg.commands.curriculum and self.track_idx is not None:
+            # every max_episode_length common steps, widen lin_vel_x by 0.5
+            # m/s each way if the episodes finishing now tracked velocity
+            # above 80% of the possible reward
+            T = self.max_episode_length
+            track = self.reward_scales[self.track_idx]
+            mean_track = torch.sum(episode_sums[:, self.track_idx] * rmask) / torch.clamp(
+                ep_count, min=1.0)
+            widen = ((common_step % T) == 0) & (mean_track / T > 0.8 * track) & (ep_count > 0)
+            mc = cfg.commands.max_curriculum
+            wider = torch.stack([torch.clamp(cmd_x_range[0] - 0.5, -mc, 0.0),
+                                 torch.clamp(cmd_x_range[1] + 0.5, 0.0, mc)])
+            cmd_x_range = torch.where(widen, wider, cmd_x_range)
         episode_sums = torch.where(r, 0.0, episode_sums)
 
         # ---- 7. observations ----
         base_lin_vel_o = torch.where(r, 0.0, base_lin_vel)
         base_ang_vel_o = torch.where(r, 0.0, base_ang_vel)
         base_euler_o = torch.where(r, 0.0, base_euler)
-        stance_mask_o, _ = self._gait_masks(episode_length_out)
-        phase = self._phase(episode_length_out)
+        counter_out = plb if self.sw_switch else episode_length_out
+        stance_mask_o, _ = self._gait_masks(counter_out, gs)
+        phase = self._phase(counter_out, gs)
         sincos = torch.stack([torch.sin(2 * math.pi * phase), torch.cos(2 * math.pi * phase)], dim=1)
         command_input = torch.cat([sincos, commands[:, 0:3] * self.commands_scale], dim=1)
         os_ = cfg.normalization.obs_scales
         q = (phys.qj - self.default_dof_pos) * os_.dof_pos
         dq = phys.u[:, 6:] * os_.dof_vel
-        diff = phys.qj - self._ref_dof_pos(episode_length_out)
+        diff = phys.qj - self._ref_dof_pos(counter_out, gs)
         single_priv = torch.cat([
             command_input, q, dq, actions, diff,
             base_lin_vel_o * os_.lin_vel, base_ang_vel_o * os_.ang_vel, base_euler_o * os_.quat,
@@ -710,6 +831,8 @@ class XBotLEnv:
         elif self.sampler is not None and self.height_points is not None:
             # the engine samples the heightfield itself: the height scan only
             mh, _ = self._sample_terrain(phys, phys.base_pos.new_zeros(N, 0, 2))
+        elif self.height_points is not None:
+            mh = self.terrain.sample_min3(self._scan_xy(phys))   # the plane's heights
         if mh is not None:
             heights = torch.clamp(phys.base_pos[:, 2:3] - 0.5 - mh, -1.0, 1.0)
             single_priv = torch.cat([single_priv, heights * os_.height_measurements], dim=1)
@@ -744,7 +867,8 @@ class XBotLEnv:
             terrain_levels=terrain_levels, terrain_types=state.terrain_types,
             course_gain=state.course_gain, body_com=state.body_com,
             body_inertia=state.body_inertia, lag_buffer=lag_buffer,
-            terrain_planes=terrain_planes, **dof_rand,
+            time_to_stand_still=ttss, phase_length_buf=plb, gait_start=gs, gait_time=gait_time,
+            cmd_x_range=cmd_x_range, terrain_planes=terrain_planes, **dof_rand,
         )
         out = StepOutput(
             obs=obs, privileged_obs=priv_obs, rew=rew, reset=reset_buf, time_outs=time_out,

@@ -3,7 +3,9 @@ plain version.
 
 `ControlStepKernel` runs one 100 Hz control step (`decimation` substeps of
 PD, dynamics, contact and Euler) for every env, with block-PGS foot contact
-or, built without PGS parameters, the penalty model on every contact point.
+(cold, or warm-started from the previous substep's impulses when
+`PGSParams.warm_start` is set) or, built without PGS parameters, the
+penalty model on every contact point.
 On a CUDA tensor it launches the hand-written kernel csrc/control_step.cu,
 the port of humanoid_tpu/ops/physics_kernel.py::_control_kernel; on a CPU
 tensor it runs `control_step_plain`: engine.control_step_pgs or
@@ -188,14 +190,15 @@ def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: Contac
                        pgs_params: Optional[PGSParams], dt: float, state_pack, masses,
                        friction, targets, decimation: int, freeze: bool, freeze_prep: bool,
                        gains=None, body=None, planes=None):
-    """The plain PyTorch version of the kernel: engine.control_step_pgs, or
-    engine.control_step_batch without pgs_params (the penalty model; no
-    contact prep, so freeze_prep has no effect), with the PD torque of the
-    kernel. kp/kd/tau_lim are (nj,) tensors on the state's device; gains,
-    body and planes as the kernel takes them (None: the table's gains, the
-    model's bodies, the flat plane). Its Cholesky factor and solves are the
-    plain versions (the engine's default), on the card too: no kernel under
-    test. Returns (state pack, PhysDiag)."""
+    """The plain PyTorch version of the kernel: engine.control_step_pgs
+    (warm-started when pgs_params.warm_start), or engine.control_step_batch
+    without pgs_params (the penalty model; no contact prep, so freeze_prep
+    has no effect), with the PD torque of the kernel. kp/kd/tau_lim are
+    (nj,) tensors on the state's device; gains, body and planes as the
+    kernel takes them (None: the table's gains, the model's bodies, the
+    flat plane). Its Cholesky factor and solves are the plain versions (the
+    engine's default), on the card too: no kernel under test. Returns
+    (state pack, PhysDiag)."""
     nj = rt.nj
     if gains is not None:
         kp, kd, strength = gains[:, :nj], gains[:, nj:2 * nj], gains[:, 2 * nj:]
@@ -219,13 +222,14 @@ def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: Contac
         phys, diag = control_step_pgs(rt, params, Terrain.plane(), contact_params, pgs_params,
                                       state, torque_fn, decimation, dt,
                                       freeze_mass_matrix=freeze, freeze_prep=freeze_prep,
-                                      planes=planes)
+                                      planes=planes, warm=pgs_params.warm_start)
     return pack_state(phys), diag
 
 
 class ControlStepKernel:
     """Wrapper of the control-step kernel for one robot and gain set, on
-    the PGS contact model, or the penalty model when pgs_params is None.
+    the PGS contact model (its warm instance when pgs_params.warm_start),
+    or the penalty model when pgs_params is None.
 
     `launches` counts kernel launches (CUDA calls only). The library is
     built with nvcc at the first CUDA call; `build_info` then holds the
@@ -263,7 +267,7 @@ class ControlStepKernel:
             lib = info.lib
             lib.control_step_launch.restype = ctypes.c_int
             lib.control_step_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
-                + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             lib.model_table_bytes.restype = ctypes.c_int
             lib.model_table_bytes.argtypes = []
             if lib.model_table_bytes() != ctypes.sizeof(ModelTable):
@@ -314,11 +318,12 @@ class ControlStepKernel:
         diag = torch.empty((self.n_diag, N), device=dev, dtype=torch.float32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         pgs = self.pgs_params is not None
+        warm = pgs and self.pgs_params.warm_start
         err = lib.control_step_launch(
             state_pack.data_ptr(), masses.data_ptr(), friction.data_ptr(), targets.data_ptr(),
             *(None if x is None else x.data_ptr() for x in (gains, body, planes)),
             out.data_ptr(), diag.data_ptr(), N, table.data_ptr(), int(decimation), int(pgs),
-            int(bool(freeze)), int(bool(freeze_prep)),
+            int(warm), int(bool(freeze)), int(bool(freeze_prep)),
             int(self.pgs_params.iterations) if pgs else 0, stream)
         if err != 0:
             raise RuntimeError(f"control_step_kernel launch failed: cudaError {err}")
@@ -333,7 +338,8 @@ def launch_bytes(model, N: int, gains: bool = False, body: bool = False,
                  planes: bool = False) -> int:
     """Bytes one launch must move: every input read once (state, masses,
     friction, targets and the optional gains, body and planes), every
-    output written once (state, diagnostics)."""
+    output written once (state, diagnostics). The warm instance moves the
+    same: its carried impulses stay in the thread."""
     n_state = 7 + model.nj + model.nv
     extras = 3 * model.nj * gains + 9 * model.nb * body + 3 * n_points(model) * planes
     return 4 * N * (2 * n_state + model.nb + 1 + model.nj + diag_rows(model) + extras)
@@ -347,7 +353,9 @@ def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
     the PGS instance or (pgs=False) the penalty one, which has no contact
     prep and no sweeps (freeze_prep and iterations then count nothing).
     The body input only replaces loads; gains add the strength product,
-    planes the plane normals, gaps and the tangent bases."""
+    planes the plane normals, gaps and the tangent bases. The warm instance
+    (PGSParams.warm_start) counts the same: its sweeps start from the
+    carried impulses instead of zeros, with the same arithmetic."""
     nj, nb, nv = model.nj, model.nb, model.nv
     pt_body, _ = model.contact_points()
     K, R = len(pt_body), 3 * len(pt_body)

@@ -111,12 +111,15 @@ def substep_batch_pgs(
     prep: Optional[PGSPrep] = None,
     planes: Optional[torch.Tensor] = None,
     chol=PLAIN,
-) -> Tuple[PhysState, PhysDiag]:
+    lam0: Optional[torch.Tensor] = None,
+) -> Tuple[PhysState, PhysDiag, torch.Tensor]:
     """One velocity-stepping substep with the block-PGS foot contact.
     L: frozen mass-matrix factor, else CRBA + factor here. prep: frozen
     contact prep, else built here from this substep's configuration.
     planes: per-point ground planes (N, 3P) in place of `terrain`. chol:
-    the Cholesky routines (ops/linalg.py)."""
+    the Cholesky routines (ops/linalg.py). lam0: the impulses (N, 3K) the
+    sweep starts from (None: zeros). Returns (state, diag, the final
+    impulses)."""
     N = tau_j.shape[0]
     body_pos, body_quat, S, I_sp, v_sp, C = _kinematics_bias(rt, params, state)
     if L is None:
@@ -132,7 +135,8 @@ def substep_batch_pgs(
     pts, vels, phi, n, J = foot_contact_set(rt, body_pos, body_quat, v_sp, terrain, planes)
     if prep is None:
         prep = pgs_prepare(L, n, J)
-    u_plus, point_forces = pgs_solve(u_free, prep, phi, params.friction, dt, pgs_params)
+    u_plus, point_forces, lam = pgs_solve(u_free, prep, phi, params.friction, dt, pgs_params,
+                                          lam0)
 
     # spatial -> conventional correction on the linear part
     omega = state.u[:, 0:3]
@@ -155,7 +159,7 @@ def substep_batch_pgs(
         term_force=term_fn,
         tau=tau_j,
     )
-    return new_state, diag
+    return new_state, diag, lam
 
 
 def frozen_prep(rt: RobotTensors, params: EnvPhysParams, state: PhysState, L, terrain,
@@ -180,6 +184,7 @@ def control_step_pgs(
     freeze_prep: bool = False,
     planes: Optional[torch.Tensor] = None,
     chol=PLAIN,
+    warm: bool = False,
 ) -> Tuple[PhysState, PhysDiag]:
     """`decimation` PGS substeps with the PD torque recomputed each one.
     freeze_mass_matrix factors M once, from the entry configuration;
@@ -187,17 +192,22 @@ def control_step_pgs(
     once from it. The ground is `terrain`, sampled every substep (the
     reference's semantics), or `planes` (N, 3P), one plane per contact
     point held for the whole control step (the kernel's). chol: the
-    Cholesky routines (ops/linalg.py)."""
-    L = prep = None
+    Cholesky routines (ops/linalg.py). warm: each substep's sweep starts
+    from the previous substep's impulses, zeros at the control step's
+    entry (the reference kernel's pgs_warm_start); otherwise every sweep
+    starts cold."""
+    L = prep = lam = None
     if freeze_mass_matrix:
         L = mass_matrix_factor(rt, params, state, chol)
         if freeze_prep:
             prep = frozen_prep(rt, params, state, L, terrain, planes)
     diag = None
     for _ in range(decimation):
-        state, diag = substep_batch_pgs(
+        state, diag, lam_out = substep_batch_pgs(
             rt, params, terrain, contact_params, pgs_params, state,
-            torque_fn(state), dt, L=L, prep=prep, planes=planes, chol=chol)
+            torque_fn(state), dt, L=L, prep=prep, planes=planes, chol=chol, lam0=lam)
+        if warm:
+            lam = lam_out
     return state, diag
 
 

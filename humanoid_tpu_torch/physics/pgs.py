@@ -12,7 +12,8 @@ block PGS: scalar normal update, 2x2 tangential solve, cone projection.
 The contact prep (frames, Jacobian rows, Delassus operator) can be built
 once per control step from the entry configuration and reused by every
 substep (`freeze_prep`, see PGSPrep); penetrations, bias and velocities are
-always fresh.
+always fresh. The sweep starts from zero impulses, or from `lam0` (the
+warm start: the previous substep's impulses, `PGSParams.warm_start`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ class PGSParams(NamedTuple):
     erp: float = 0.024
     cfm_ratio: float = 0.01
     slop: float = 0.0
+    # carry the impulses from substep to substep within a control step: the
+    # fused kernel's option (and its plain version's); the engine path of the
+    # env starts every substep cold, as the reference's XLA path does
+    warm_start: bool = False
 
 
 class PGSPrep(NamedTuple):
@@ -117,16 +122,23 @@ def pgs_prepare(L, n, J) -> PGSPrep:
     return PGSPrep(Rk=Rk, Jc=Jc, W=W, A=A)
 
 
-def pgs_solve(u_free, prep: PGSPrep, phi, mu, dt: float, params: PGSParams):
-    """Block-PGS impulse solve from a cold start. Returns (u_plus (N,nv),
-    world contact forces (N,K,3) = impulses / dt)."""
+def pgs_solve(u_free, prep: PGSPrep, phi, mu, dt: float, params: PGSParams, lam0=None):
+    """Block-PGS impulse solve, the reference kernel's _pgs_contact sweep.
+    It starts from zero impulses, or from lam0 (N, 3K) (the warm start),
+    which enters every row velocity v = v_free + A lam as the sweep's own
+    impulses do; after the first sweep a point out of contact holds zero.
+    Returns (u_plus (N,nv), world contact forces (N,K,3) = impulses / dt,
+    the final impulses lam (N,3K) in the contact frames)."""
     N, K = phi.shape
     Amat = prep.A
     v_free = torch.einsum("nkv,nv->nk", prep.Jc, u_free)
     active = phi < 0.0
     b_n = -(params.erp / dt) * torch.clamp(-phi - params.slop, min=0.0)
     zero = torch.zeros((), dtype=u_free.dtype, device=u_free.device)
-    lam = torch.zeros(N, 3 * K, dtype=u_free.dtype, device=u_free.device)
+    if lam0 is None:
+        lam = torch.zeros(N, 3 * K, dtype=u_free.dtype, device=u_free.device)
+    else:
+        lam = lam0.clone()
     for _ in range(params.iterations):
         for k in range(K):
             i0 = 3 * k
@@ -153,4 +165,4 @@ def pgs_solve(u_free, prep: PGSPrep, phi, mu, dt: float, params: PGSParams):
             lam[:, i0 + 2] = torch.where(ok, lt2 * scale, zero)
     u_plus = u_free + torch.einsum("nkv,nk->nv", prep.W, lam)
     forces = torch.einsum("nkab,nka->nkb", prep.Rk, lam.reshape(N, K, 3)) / dt
-    return u_plus, forces
+    return u_plus, forces, lam

@@ -4,8 +4,10 @@
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH]
 
 Tasks: humanoid_ppo, humanoid_ppo_penalty, humanoid_ppo_terrain,
-humanoid_ppo_trimesh (utils/registry.py). `--contact penalty|pgs` overrides
-the task's contact model.
+humanoid_ppo_trimesh, humanoid_ppo_pgs, humanoid_ppo_robust,
+humanoid_ppo_transfer, humanoid_ppo_omni, humanoid_ppo_envelope,
+humanoid_ppo_8k, humanoid_ppo_sym (utils/registry.py). `--contact
+penalty|pgs` overrides the task's contact model.
 
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
@@ -54,7 +56,8 @@ def main(argv=None, log_fn=None):
             "rollout_s": m.rollout_s, "update_s": m.update_s,
             "mean_reward": float(m.mean_step_reward),
             "value_loss": float(m.update.value_loss),
-            "surrogate_loss": float(m.update.surrogate_loss), "lr": float(m.update.lr),
+            "surrogate_loss": float(m.update.surrogate_loss),
+            "sym_loss": float(m.update.sym_loss), "lr": float(m.update.lr),
         }), flush=True)
 
     print(f"task={args.task} envs={env_cfg.env.num_envs} iters={total} device={device}",

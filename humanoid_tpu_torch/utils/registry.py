@@ -12,6 +12,23 @@ reference registry's configs.
                         randomization and the tracking curriculum
   humanoid_ppo_trimesh  as humanoid_ppo_terrain on the base generator set,
                         with the vertical-face (trimesh) sampling
+  humanoid_ppo_pgs      an alias of humanoid_ppo
+  humanoid_ppo_robust   humanoid_ppo with the extended domain
+                        randomization, the stand/walk switch with a
+                        walk-stand-walk gait schedule, the command
+                        curriculum and the action-smoothness reward
+                        curriculum
+  humanoid_ppo_transfer humanoid_ppo with the extended domain
+                        randomization and tracking-biased rewards
+  humanoid_ppo_omni     humanoid_ppo_transfer with wider command ranges
+  humanoid_ppo_envelope humanoid_ppo_omni's recipe with on-axis command
+                        practice (axis_frac), a wider vx range, the
+                        terrain tasks' rewards and the mirror-symmetry loss
+  humanoid_ppo_8k       humanoid_ppo at 8192 envs
+  humanoid_ppo_sym      humanoid_ppo with the mirror-symmetry loss
+
+Warm-started PGS (`sim.pgs_warm_start`) ships in no task, as in the
+reference; a config with it set runs the kernel's warm instance.
 """
 from __future__ import annotations
 
@@ -20,19 +37,20 @@ import os
 from typing import Dict, Optional, Tuple
 
 from ..assets import write_xbot_topology_urdf
-from ..config.structs import (DomainRandCfg, EnvCfg, RewardScalesCfg, RewardsCfg, SimCfg,
-                              TerrainCfg, XBotLCfg, XBotLCfgPPO)
+from ..config.structs import (AlgorithmCfg, CommandRangesCfg, CommandsCfg, DomainRandCfg,
+                              EnvCfg, RewardScalesCfg, RewardsCfg, SimCfg, TerrainCfg, XBotLCfg,
+                              XBotLCfgPPO)
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 
 _PGS = SimCfg(contact_model="pgs", pgs_freeze_prep=True, pgs_iterations=6)
-# the terrain tasks' extended domain randomization and tracking-biased rewards
-_TERRAIN_DR = DomainRandCfg(
+# the extended domain randomization and the tracking-biased rewards
+_EXTENDED_DR = DomainRandCfg(
     randomize_link_mass=True, randomize_base_com=True, randomize_inertia=True,
     randomize_motor_strength=True, randomize_motor_offset=True, randomize_kp_factor=True,
     randomize_kd_factor=True, randomize_lag_timesteps=True,
 )
-_TERRAIN_REWARDS = RewardsCfg(
+_TRACKING_REWARDS = RewardsCfg(
     low_speed_lo=0.7, tracking_sigma=12.0, low_speed_directional=True,
     scales=RewardScalesCfg(tracking_lin_vel=2.4, low_speed=0.4),
 )
@@ -48,7 +66,7 @@ _REGISTRY: Dict[str, Tuple[XBotLCfg, XBotLCfgPPO]] = {
                 terrain_proportions=(0.05, 0.15, 0.15, 0.1, 0.1, 0.1, 0.1, 0.25),
                 curriculum_mode="tracking", random_level_frac=0.1,
             ),
-            sim=_PGS, domain_rand=_TERRAIN_DR, rewards=_TERRAIN_REWARDS,
+            sim=_PGS, domain_rand=_EXTENDED_DR, rewards=_TRACKING_REWARDS,
         ),
         XBotLCfgPPO(),
     ),
@@ -60,10 +78,45 @@ _REGISTRY: Dict[str, Tuple[XBotLCfg, XBotLCfgPPO]] = {
                 terrain_proportions=(0.15, 0.15, 0.15, 0.15, 0.15, 0.1, 0.1),
                 curriculum_mode="tracking", random_level_frac=0.1,
             ),
-            sim=_PGS, domain_rand=_TERRAIN_DR, rewards=_TERRAIN_REWARDS,
+            sim=_PGS, domain_rand=_EXTENDED_DR, rewards=_TRACKING_REWARDS,
         ),
         XBotLCfgPPO(),
     ),
+    "humanoid_ppo_pgs": (XBotLCfg(sim=_PGS), XBotLCfgPPO()),
+    "humanoid_ppo_robust": (
+        XBotLCfg(
+            sim=_PGS, domain_rand=_EXTENDED_DR,
+            commands=CommandsCfg(curriculum=True, sw_switch=True,
+                                 gait=("walk_omnidirectional", "stand", "walk_omnidirectional")),
+            rewards=RewardsCfg(course_ratio=1.001),
+        ),
+        XBotLCfgPPO(),
+    ),
+    "humanoid_ppo_transfer": (
+        XBotLCfg(sim=_PGS, domain_rand=_EXTENDED_DR,
+                 rewards=RewardsCfg(low_speed_lo=0.7,
+                                    scales=RewardScalesCfg(tracking_lin_vel=2.4))),
+        XBotLCfgPPO(),
+    ),
+    "humanoid_ppo_omni": (
+        XBotLCfg(sim=_PGS, domain_rand=_EXTENDED_DR,
+                 commands=CommandsCfg(ranges=CommandRangesCfg(lin_vel_x=(-0.5, 0.6),
+                                                              lin_vel_y=(-0.4, 0.4))),
+                 rewards=RewardsCfg(low_speed_lo=0.7,
+                                    scales=RewardScalesCfg(tracking_lin_vel=2.4))),
+        XBotLCfgPPO(),
+    ),
+    "humanoid_ppo_envelope": (
+        XBotLCfg(sim=_PGS, domain_rand=_EXTENDED_DR,
+                 commands=CommandsCfg(axis_frac=0.25,
+                                      ranges=CommandRangesCfg(lin_vel_x=(-0.5, 0.8),
+                                                              lin_vel_y=(-0.4, 0.4))),
+                 rewards=_TRACKING_REWARDS),
+        XBotLCfgPPO(algorithm=AlgorithmCfg(sym_loss=True, sym_coef=1.0)),
+    ),
+    "humanoid_ppo_8k": (XBotLCfg(env=EnvCfg(num_envs=8192), sim=_PGS), XBotLCfgPPO()),
+    "humanoid_ppo_sym": (XBotLCfg(sim=_PGS),
+                         XBotLCfgPPO(algorithm=AlgorithmCfg(sym_loss=True, sym_coef=1.0))),
 }
 
 

@@ -199,8 +199,13 @@ def test_train_iteration_runs_at_small_size():
     assert any(not torch.equal(p, q) for p, q in zip(runner.net.parameters(), before))
 
 
-@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain", "humanoid_ppo_trimesh",
-                                  "humanoid_ppo_penalty"])
+PORTED_TASKS = ["humanoid_ppo", "humanoid_ppo_8k", "humanoid_ppo_envelope", "humanoid_ppo_omni",
+                "humanoid_ppo_penalty", "humanoid_ppo_pgs", "humanoid_ppo_robust",
+                "humanoid_ppo_sym", "humanoid_ppo_terrain", "humanoid_ppo_transfer",
+                "humanoid_ppo_trimesh"]
+
+
+@pytest.mark.parametrize("task", PORTED_TASKS)
 def test_registry_config_matches_reference(task):
     from humanoid_tpu.utils import registry as jreg
     from humanoid_tpu_torch.utils import registry
@@ -209,8 +214,7 @@ def test_registry_config_matches_reference(task):
     te, tt = registry.get_cfgs(task)
     assert dataclasses.asdict(te) == dataclasses.asdict(je)
     assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
-    assert registry.list_tasks() == ["humanoid_ppo", "humanoid_ppo_penalty",
-                                     "humanoid_ppo_terrain", "humanoid_ppo_trimesh"]
+    assert registry.list_tasks() == PORTED_TASKS
 
 
 @pytest.mark.parametrize("task,contact", [("humanoid_ppo", "penalty"),

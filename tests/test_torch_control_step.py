@@ -209,12 +209,13 @@ def host_build(tmp_path_factory):
         f'#include "{os.path.abspath(CSRC)}"\n'
         "extern \"C\" void host_control_step(const float* s, const float* m, const float* f,\n"
         "    const float* t, const float* g, const float* b, const float* pl, float* so,\n"
-        "    float* d, int N, const void* table, int dec, int pgs, int fr, int fp, int it) {\n"
+        "    float* d, int N, const void* table, int dec, int pgs, int warm, int fr, int fp,\n"
+        "    int it) {\n"
         "  const ModelTable& mt = *static_cast<const ModelTable*>(table);\n"
         "  Work* W = new Work;\n"
         "  for (int n = 0; n < N; ++n)\n"
-        "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, pgs != 0, fr != 0,\n"
-        "                     fp != 0, it, *W);\n"
+        "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, pgs != 0, warm != 0,\n"
+        "                     fr != 0, fp != 0, it, *W);\n"
         "  delete W;\n"
         "}\n"
         "extern \"C\" int host_table_bytes() { return (int)sizeof(ModelTable); }\n")
@@ -222,14 +223,15 @@ def host_build(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
     lib.host_control_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 5
+        + [ctypes.c_int] * 6
     return lib
 
 
 def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=None, body=None,
                planes=None):
     """One control step of the host-compiled kernel source, on the contact
-    model of the wrapper k (PGS, or penalty without PGS parameters)."""
+    model of the wrapper k (PGS, cold or warm as its parameters say, or
+    penalty without PGS parameters)."""
     n = pack.shape[1]
     out = torch.empty_like(pack)
     diag = torch.empty((k.n_diag, n))
@@ -237,17 +239,25 @@ def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=N
     ptr = [None if x is None else x.contiguous().data_ptr()
            for x in (pack, masses, friction, targets, gains, body, planes)]
     pgs = k.pgs_params is not None
+    warm = pgs and k.pgs_params.warm_start
     host_build.host_control_step(*ptr, out.data_ptr(), diag.data_ptr(), n,
-                                 ctypes.addressof(k.table), dec, int(pgs), int(fr), int(fp),
-                                 SWEEPS if pgs else 0)
+                                 ctypes.addressof(k.table), dec, int(pgs), int(warm), int(fr),
+                                 int(fp), SWEEPS if pgs else 0)
     return out, unpack_diag(diag, k.model)
 
 
-@pytest.mark.parametrize("instance", [(1, False, False), (10, True, True), (10, True, False),
-                                      (10, False, False)])
-def test_kernel_source_matches_plain_on_host(setup, host_build, instance):
+@pytest.mark.parametrize("instance,warm", [((1, False, False), False), ((10, True, True), False),
+                                           ((10, True, False), False), ((10, False, False), False),
+                                           ((10, True, True), True), ((10, False, False), True)])
+def test_kernel_source_matches_plain_on_host(setup, host_build, instance, warm):
+    """The host-compiled kernel vs the plain version on each instance; with
+    `warm`, the warm-started PGS instance (PGSParams.warm_start) against the
+    plain warm control step."""
     assert host_build.host_table_bytes() == ctypes.sizeof(ModelTable)
     k = setup["kernel"]
+    if warm:
+        k = ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(),
+                              PGSParams(iterations=SWEEPS, warm_start=True), 0.001)
     pack = setup["pack"].contiguous()
     masses, friction, targets = (x.contiguous() for x in _torch_args(setup))
     out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance)
@@ -258,6 +268,10 @@ def test_kernel_source_matches_plain_on_host(setup, host_build, instance):
     np.testing.assert_allclose(hd.body_omega.numpy(), db.body_omega.numpy(), atol=1e-3)
     np.testing.assert_allclose(hd.tau.numpy(), db.tau.numpy(), atol=1e-2)
     np.testing.assert_allclose(hd.term_force.numpy(), db.term_force.numpy(), atol=1e-3)
+    if warm:   # control: the cold plain version falls outside the bounds
+        c, dc = setup["kernel"].plain(pack, masses, friction, targets, *instance)
+        du, dpos, dff = _kernel_errors(out, hd.foot_forces, c, dc.foot_forces, setup["weight"])
+        assert du >= 1e-2 or dpos >= 1e-5 or dff >= 0.01, (du, dpos, dff)
 
 
 # ---------------------------------------------------------------------------

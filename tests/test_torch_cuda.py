@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA control-step kernel (without and
-with its gains, body and planes inputs, on PGS and penalty contact), the
+with its gains, body and planes inputs, on PGS, warm-started PGS and
+penalty contact), the
 heightfield sampler and the batched Cholesky kernels against their plain
 PyTorch versions. They import nothing of JAX, so that they run
 on a machine with the card:
@@ -264,4 +265,30 @@ def test_cuda_penalty_kernel_with_gains_body_planes_matches_plain(cuda_device):
     assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
     # control: without the planes the plain version falls outside the bounds
     assert float((a[19:] - c[19:]).abs().max()) >= 1e-2 \
+        or float((da.foot_forces - dc.foot_forces).abs().max()) >= 0.01 * weight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", [(10, True, True), (10, False, False)])
+def test_cuda_warm_kernel_matches_plain(cuda_device, instance):
+    """The warm-started PGS instance (PGSParams.warm_start) vs the plain
+    warm control step at 4096 envs, on robots pressed 1 mm into the flat
+    ground; control: the cold plain version falls outside the bounds."""
+    env, _, _ = registry.make_env("humanoid_ppo", device=cuda_device)
+    p = env.physics
+    cold = ControlStepKernel(env.model, *p.gains, p.contact_params, p.pgs_params, p.dt)
+    k = ControlStepKernel(env.model, *p.gains, p.contact_params,
+                          p.pgs_params._replace(warm_start=True), p.dt)
+    inputs = _loaded_feet(cold, env.model, cuda_device, N=ENVS)
+    a, da = k(*inputs, *instance)
+    b, db = k.plain(*inputs, *instance)
+    c, dc = cold.plain(*inputs, *instance)
+    torch.cuda.synchronize()
+    assert k.launches == 1 and cold.launches == 0
+    weight = env.model.total_mass * 9.81
+    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
+    assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
+    assert float((a[19:] - c[19:]).abs().max()) >= 1e-2 \
+        or float((a[0:3] - c[0:3]).abs().max()) >= 1e-5 \
         or float((da.foot_forces - dc.foot_forces).abs().max()) >= 0.01 * weight

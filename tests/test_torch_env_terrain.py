@@ -26,6 +26,11 @@ semantics) and its scan from the same sampler call.
     (demote_prob 1, random_level_frac 0, so that it is deterministic), and
     the reset origins and jitter. Then the task trains one iteration on
     the CPU through the CLI, and humanoid_ppo_trimesh builds and steps.
+(d) humanoid_ppo_trimesh on its own world (walls where a cell edge rises
+    more than slope_treshold x horizontal_scale = 0.075 m): the same
+    trajectory bounds and equal resets as (b), and its contact planes
+    against the reference's, with the c0 bound scaled by |gx x| + |gy y|
+    (see _assert_trimesh_planes_close).
 """
 import dataclasses
 
@@ -81,11 +86,14 @@ def ramp_world(tc):
     return height, origins
 
 
-def build_pair(urdf, freeze_prep, world, **sim):
-    """(reference env, port env) of the task on `world` = (height, origins)
-    or None for the task's generated world; `sim` overrides its SimCfg."""
-    jc = make_cfg(jreg.get_cfgs(TASK)[0], urdf, freeze_prep, **sim)
-    tc = make_cfg(registry.get_cfgs(TASK)[0], urdf, freeze_prep, **sim)
+def build_pair(urdf, freeze_prep, world, task=TASK, **sim):
+    """(reference env, port env) of `task` on `world` = (height, origins)
+    or None for the task's generated world; `sim` overrides its SimCfg. A
+    trimesh task's walls rise at slope_treshold x horizontal_scale."""
+    jc = make_cfg(jreg.get_cfgs(task)[0], urdf, freeze_prep, **sim)
+    tc = make_cfg(registry.get_cfgs(task)[0], urdf, freeze_prep, **sim)
+    wall = (tc.terrain.slope_treshold * tc.terrain.horizontal_scale
+            if tc.terrain.mesh_type == "trimesh" else 0.0)
     if world is None:
         jw = jterrain.build_terrain(jc.terrain, seed=jc.seed)
         tw = tterrain.build_terrain(tc.terrain, seed=tc.seed)
@@ -98,9 +106,10 @@ def build_pair(urdf, freeze_prep, world, **sim):
         tw = tterrain.TerrainWorld(height=height, **kw)
     jenv = JaxEnv(jc, terrain=JTerrain(height=jnp.asarray(jw.height, dtype=jnp.float32),
                                         horizontal_scale=jw.horizontal_scale, border=jw.border,
-                                        flat=False), terrain_world=jw)
+                                        flat=False, wall_thresh=wall), terrain_world=jw)
     tenv = XBotLEnv(tc, urdf, device="cpu",
-                    terrain=Terrain.heightfield(tw.height, tw.horizontal_scale, tw.border),
+                    terrain=Terrain.heightfield(tw.height, tw.horizontal_scale, tw.border,
+                                                wall_thresh=wall),
                     terrain_world=tw)
     return jenv, tenv
 
@@ -476,12 +485,77 @@ def test_trimesh_builds_and_steps_on_cpu(urdf):
     assert o.privileged_obs.shape == (8, 780) and bool(torch.isfinite(o.privileged_obs).all())
 
 
-@pytest.mark.parametrize("feature", ["measure_heights on a plane", "sw_switch", "pgs_warm_start"])
-def test_unported_features_fail_at_construction(urdf, feature):
-    cfg = registry.get_cfgs("humanoid_ppo")[0]
-    r = dataclasses.replace
-    cfg = {"measure_heights on a plane": cfg.replace(terrain=r(cfg.terrain, measure_heights=True)),
-           "sw_switch": cfg.replace(commands=r(cfg.commands, sw_switch=True)),
-           "pgs_warm_start": cfg.replace(sim=r(cfg.sim, pgs_warm_start=True))}[feature]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        XBotLEnv(cfg, urdf, device="cpu")
+# ---------------------------------------------------------------------------
+# humanoid_ppo_trimesh against the reference
+
+
+@pytest.fixture(scope="module")
+def trimesh(urdf):
+    """(reference env, port env) of humanoid_ppo_trimesh on its generated
+    world (seed 5), the port on its shipping frozen contact prep."""
+    jenv, tenv = build_pair(urdf, True, None, task="humanoid_ppo_trimesh")
+    assert tenv.terrain.wall_thresh == pytest.approx(0.075)
+    assert jenv.terrain.wall_thresh == pytest.approx(0.075)
+    return jenv, tenv
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trimesh_world_tracks_reference(trimesh, seed):
+    """20 steps: the reference's kernel-vs-XLA trajectory bounds (max |dqj|
+    <= 0.05, the median base heights within 0.01 m) and equal resets."""
+    jenv, tenv = trimesh
+    js = jenv.initial_state(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(10 + seed)
+    acts = [0.3 * rng.standard_normal((N, 12)).astype(np.float32) for _ in range(20)]
+    _, out = run_pair(jenv, tenv, js, 20, lambda i: acts[i], 400 + 100 * seed)
+    max_dq = max(float(np.abs(np.asarray(j.phys.qj) - t.phys.qj.numpy()).max())
+                 for j, _, t, _ in out)
+    js, _, ts, _ = out[-1]
+    dz = abs(float(np.median(np.asarray(js.phys.base_pos[:, 2])))
+             - float(ts.phys.base_pos[:, 2].median()))
+    assert max_dq <= 0.05, max_dq
+    assert dz <= 0.01, dz
+    for j, jo, t, to in out:
+        np.testing.assert_array_equal(to.reset.numpy(), np.asarray(jo.reset))
+
+
+def _assert_trimesh_planes_close(got, want, xy):
+    """c0 = h - gx x - gy y is a difference of terms that reach |gx x| ~
+    1e5 m at a wall (gradients up to ~1e3): held to 5e-5 m plus 8 float32
+    ulps of |gx x| + |gy y|; the gradients to 1e-6 plus 8 ulps of |g|."""
+    eps = float(np.finfo(np.float32).eps)
+    got, want = got.reshape(got.shape[0], -1, 3), want.reshape(want.shape[0], -1, 3)
+    g = np.abs(want[..., 1:])
+    assert (np.abs(got[..., 1:] - want[..., 1:]) <= 1e-6 + 8 * eps * g).all(), \
+        np.abs(got[..., 1:] - want[..., 1:]).max()
+    scale = g[..., 0] * np.abs(xy[..., 0]) + g[..., 1] * np.abs(xy[..., 1])
+    err = np.abs(got[..., 0] - want[..., 0])
+    assert (err <= 5e-5 + 8 * eps * scale).all(), (err.max(), (err / (5e-5 + eps * scale)).max())
+
+
+def test_trimesh_contact_planes_match_reference(trimesh):
+    """contact_planes vs the reference's on 256 robots spread over the
+    trimesh world with random yaw and joint angles; many points stand on a
+    wall band."""
+    jenv, tenv = trimesh
+    n = 256
+    rng = np.random.default_rng(12)
+    w = tenv.terrain_world
+    bp = np.c_[rng.uniform(0.0, w.num_rows * w.terrain_length, n),
+               rng.uniform(0.0, w.num_cols * w.terrain_length, n), np.full(n, 0.9)]
+    yaw = rng.uniform(-np.pi, np.pi, n)
+    quat = np.c_[np.cos(yaw / 2), np.zeros((n, 2)), np.sin(yaw / 2)]
+    qj = np.asarray(jenv.default_dof_pos) + rng.uniform(-0.3, 0.3, (n, 12))
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    jphys = jenv.initial_state(jax.random.PRNGKey(4)).phys._replace(
+        base_pos=jnp.asarray(f32(bp)), base_quat=jnp.asarray(f32(quat)),
+        qj=jnp.asarray(f32(qj)), u=jnp.zeros((n, 18)))
+    tphys = PhysState(*(torch.tensor(np.asarray(x)) for x in jphys))
+    want = np.asarray(jenv._contact_planes(jphys))
+    got = tenv.contact_planes(tphys).numpy()
+    body_pos, body_quat = jax.vmap(lambda p, q, j: jfk(jenv.model, p, q, j))(
+        jphys.base_pos, jphys.base_quat, jphys.qj)
+    xy = np.asarray(_reference_contact_xy(jenv, body_pos, body_quat))
+    _assert_trimesh_planes_close(got, want, xy)
+    # some points stand on a wall band
+    assert float(np.abs(want.reshape(n, 9, 3)[..., 1:]).max()) > 100.0
