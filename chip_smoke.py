@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (humanoid_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases control,warm,determinism,time
 
 Builds the control-step kernel, the heightfield sampler and the batched
 Cholesky kernels from humanoid_tpu_torch/csrc with nvcc (one nvcc per
@@ -22,12 +23,19 @@ and the engine path (`sim.use_pallas_substep=False`) for 1 iteration each
 of `humanoid_ppo`, `humanoid_ppo_terrain` and `humanoid_ppo_penalty` with
 an unfrozen factor, through registry.make_env(env_cfg=...) and
 make_alg_runner. Each path's kernel launches per iteration are checked.
-Then it times the kernels. Each phase
+A determinism phase runs the control step's PGS
+instances several times on the same inputs and requires identical outputs
+(a missing sync between the lanes of the PGS kernel's teams shows as
+run-to-run differences). Then it times the kernels. Each phase
 prints one JSON line before the next begins; a phase that fails raises and
 the script exits non-zero. The last three lines are the card's name and
-power limit, the kernel table, and {"ok": true, "device": ...}. Without a
-CUDA device, or without the package beside it, it exits non-zero before
-printing any result.
+power limit, the kernel table, and {"ok": true, "device": ...}.
+
+`--phases` runs a subset of the phases (names in PHASES; the device and
+build steps always run), for a short call while a kernel is worked on:
+then the kernel table is left out, and `time` times only the kernels whose
+phases ran. Without a CUDA device, or without the package beside it, it
+exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -67,6 +75,9 @@ RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands
 # the reference's round-4 "warm6" solver: frozen prep and 6 warm-started sweeps
 WARM6 = {"pgs_freeze_prep": True, "pgs_iterations": 6, "pgs_warm_start": True}
 SAMPLER_OPS_PER_SCAN, SAMPLER_OPS_PER_CONTACT = 13, 16
+REPEATS = 5                      # runs of each instance in the determinism phase
+PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism", "train",
+          "time")
 
 
 def emit(phase, **fields):
@@ -390,7 +401,21 @@ def compare_linalg(chol, M, b, fixed=None):
     }
 
 
-def main():
+def parse_phases(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of humanoid_tpu_torch on one card.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or not phases:
+        ap.error(f"unknown phases {unknown}: choose from {','.join(PHASES)}")
+    return set(phases)
+
+
+def main(argv=None):
+    phases = parse_phases(argv)
     import torch
 
     t_start = time.perf_counter()
@@ -413,7 +438,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, phases=[p for p in PHASES if p in phases])
 
     # ---- 1. build: one nvcc per source, started together ----
     sources = ("control_step.cu", "terrain_sampler.cu", "linalg.cu")
@@ -428,137 +453,177 @@ def main():
     env_cfg, _ = registry.get_cfgs("humanoid_ppo")
     env, _, _ = registry.make_env("humanoid_ppo", device=DEVICE)
     model, kernel = env.model, env.physics
-    # a second wrapper of the same kernel for the comparisons and timings,
-    # so that the training runs' launch counts are the main paths' alone
+    # second wrappers of the same kernel for the comparisons and timings, so
+    # that the training runs' launch counts are the main paths' alone: the
+    # shipping PGS instance, the penalty one and the warm-started one
     probe = ControlStepKernel(model, *kernel.gains, kernel.contact_params, kernel.pgs_params,
                               kernel.dt)
+    pprobe = ControlStepKernel(model, *probe.gains, probe.contact_params, None, probe.dt)
+    wprobe = ControlStepKernel(model, *probe.gains, probe.contact_params,
+                               probe.pgs_params._replace(warm_start=True), probe.dt)
+    del env, kernel
     default_pos = np.asarray(env_cfg.init_state.default_joint_angles)
     settled = settle(probe, model, default_pos)
-
-    # ---- 2. the Cholesky factor, apply and solve vs plain, ahead of the
-    # control-step comparisons (whose plain version runs the plain Cholesky) ----
-    spd_M, spd_b = random_spd(model.nv)
-    crba_M, crba_b = mass_matrices(model, settled)
-    lprobe = linalg.CholeskyKernels()
-    linalg_results = {
-        "settled_mass_matrices": compare_linalg(lprobe, crba_M, crba_b, fixed=TOL_SETTLED),
-        "random_spd": compare_linalg(lprobe, spd_M, spd_b)}
-    emit("linalg_vs_plain", envs=N, n=model.nv, **linalg_results)
-    for name, r in linalg_results.items():
-        if r["envs_over_bounds"] or not r["finite"] or not r["upper_zero"]:
-            raise AssertionError(f"linalg ({name}): a kernel disagrees with its plain version: {r}")
-    linalg_err = {k: max(r["max_abs_err"][k] for r in linalg_results.values())
-                  for k in ("factor", "apply", "solve")}
-
-    # ---- 3. the control step vs plain on humanoid_ppo's instances ----
     on_flat = pressed(settled)
     sweeps = env_cfg.sim.pgs_iterations
-    results = {}
-    for name, args in (("exact", (1, False, False)), ("shipping", (10, True, True))):
-        on_pressed = compare(probe, model, on_flat, *args)
-        on_settled = compare(probe, model, settled, *args)
-        emit(f"{name}_vs_plain", decimation=args[0], freeze=args[1], freeze_prep=args[2],
-             sweeps=sweeps, envs=N, tolerance={"du": TOL_DU, "base_pos": TOL_POS,
-                                               "foot_force_over_weight": TOL_FOOT_FRACTION},
-             pressed_1mm=on_pressed, settled=on_settled)
-        check_within(f"{name} (feet pressed 1 mm)", on_pressed)
-        if not on_settled["finite"] or on_settled["median_du"] >= 1e-3:
-            raise AssertionError(f"{name} (settled): median per-env |du| too large: {on_settled}")
-        results[name] = on_pressed
-
-    # ---- 3b. the control step's gains, body and planes inputs vs plain ----
-    gains, body, offsets = random_extras(model, *kernel.gains[:2])
+    # the inputs of the extras instance: random gains and bodies, robots
+    # settled on the ramp
+    gains, body, offsets = random_extras(model, *probe.gains[:2])
     planes = ramp_planes(model)
     on_ramp = settle(probe, model, default_pos, planes=planes)
     ramp_pressed = pressed(on_ramp)
-    rng_pack, rng_targets, rng_planes = random_near_ground(model)
-    rng_inputs = (rng_pack, settled[1], settled[2], rng_targets)
     with_offsets = lambda x: x[:3] + ((x[3] + offsets).contiguous(),)  # noqa: E731
-    extras = {
-        "gains_body_flat_pressed": compare(probe, model, with_offsets(on_flat), 10, True, True,
-                                           gains=gains, body=body),
-        "all_ramp_pressed": compare(probe, model, with_offsets(ramp_pressed), 10, True, True,
-                                    gains=gains, body=body, planes=planes),
-        "all_random_planes_exact": compare(probe, model, rng_inputs, 1, False, False,
-                                           gains=gains, body=body, planes=rng_planes),
-    }
-    emit("extras_vs_plain", envs=N, ramp_gradient=RAMP,
-         tolerance={"du": TOL_DU, "base_pos": TOL_POS,
-                    "foot_force_over_weight": TOL_FOOT_FRACTION}, **extras)
-    for name, r in extras.items():
-        check_within(name, r)
-    results["extras"] = extras["all_ramp_pressed"]
-    # controls: the plain version without one input must fall outside the
-    # bounds, or they could not tell a kernel that ignores that input
-    controls = {f"plain_without_{d}": compare(probe, model, with_offsets(ramp_pressed), 10, True,
-                                              True, drop=d, gains=gains, body=body, planes=planes)
-                for d in ("gains", "body", "planes")}
-    emit("extras_controls", envs=N, **controls)
-    for name, r in controls.items():
-        if within(r):
-            raise AssertionError(f"{name}: the bounds do not see the missing input: {r}")
+    tolerance = {"du": TOL_DU, "base_pos": TOL_POS, "foot_force_over_weight": TOL_FOOT_FRACTION}
+    results = {}
+
+    # ---- 2. the Cholesky factor, apply and solve vs plain, ahead of the
+    # control-step comparisons (whose plain version runs the plain Cholesky) ----
+    if "linalg" in phases:
+        spd_M, spd_b = random_spd(model.nv)
+        crba_M, crba_b = mass_matrices(model, settled)
+        lprobe = linalg.CholeskyKernels()
+        linalg_results = {
+            "settled_mass_matrices": compare_linalg(lprobe, crba_M, crba_b, fixed=TOL_SETTLED),
+            "random_spd": compare_linalg(lprobe, spd_M, spd_b)}
+        emit("linalg_vs_plain", envs=N, n=model.nv, **linalg_results)
+        for name, r in linalg_results.items():
+            if r["envs_over_bounds"] or not r["finite"] or not r["upper_zero"]:
+                raise AssertionError(
+                    f"linalg ({name}): a kernel disagrees with its plain version: {r}")
+        linalg_err = {k: max(r["max_abs_err"][k] for r in linalg_results.values())
+                      for k in ("factor", "apply", "solve")}
+
+    # ---- 3. the control step vs plain on humanoid_ppo's instances (and the
+    # unfrozen-prep one) ----
+    if "control" in phases:
+        for name, args in (("exact", (1, False, False)), ("shipping", (10, True, True)),
+                           ("unfrozen_prep", (10, True, False))):
+            on_pressed = compare(probe, model, on_flat, *args)
+            on_settled = compare(probe, model, settled, *args)
+            emit(f"{name}_vs_plain", decimation=args[0], freeze=args[1], freeze_prep=args[2],
+                 sweeps=sweeps, envs=N, design=probe.design(), tolerance=tolerance,
+                 pressed_1mm=on_pressed, settled=on_settled)
+            check_within(f"{name} (feet pressed 1 mm)", on_pressed)
+            if not on_settled["finite"] or on_settled["median_du"] >= 1e-3:
+                raise AssertionError(
+                    f"{name} (settled): median per-env |du| too large: {on_settled}")
+            results[name] = on_pressed
+
+    # ---- 3b. the control step's gains, body and planes inputs vs plain ----
+    if "extras" in phases:
+        rng_pack, rng_targets, rng_planes = random_near_ground(model)
+        rng_inputs = (rng_pack, settled[1], settled[2], rng_targets)
+        extras = {
+            "gains_body_flat_pressed": compare(probe, model, with_offsets(on_flat), 10, True,
+                                               True, gains=gains, body=body),
+            "all_ramp_pressed": compare(probe, model, with_offsets(ramp_pressed), 10, True, True,
+                                        gains=gains, body=body, planes=planes),
+            "all_ramp_pressed_unfrozen_prep": compare(
+                probe, model, with_offsets(ramp_pressed), 10, True, False, gains=gains,
+                body=body, planes=planes),
+            "all_random_planes_exact": compare(probe, model, rng_inputs, 1, False, False,
+                                               gains=gains, body=body, planes=rng_planes),
+        }
+        emit("extras_vs_plain", envs=N, ramp_gradient=RAMP, tolerance=tolerance, **extras)
+        for name, r in extras.items():
+            check_within(name, r)
+        results["extras"] = extras["all_ramp_pressed"]
+        # controls: the plain version without one input must fall outside the
+        # bounds, or they could not tell a kernel that ignores that input
+        controls = {f"plain_without_{d}": compare(probe, model, with_offsets(ramp_pressed), 10,
+                                                  True, True, drop=d, gains=gains, body=body,
+                                                  planes=planes)
+                    for d in ("gains", "body", "planes")}
+        emit("extras_controls", envs=N, **controls)
+        for name, r in controls.items():
+            if within(r):
+                raise AssertionError(f"{name}: the bounds do not see the missing input: {r}")
 
     # ---- 3c. the sampler vs plain on the full humanoid_ppo_terrain world ----
-    tenv, tcfg, _ = registry.make_env("humanoid_ppo_terrain", device=DEVICE)
-    world = tenv.terrain_world
-    sprobe = TerrainSampler(world.height, tcfg.terrain.vertical_scale, world.horizontal_scale,
-                            world.border, device=DEVICE)
-    scan_xy, con_xy = sampler_points(tenv)
-    k_scan, k_corners = sprobe(scan_xy, con_xy)
-    p_scan, p_corners = sprobe.plain(scan_xy, con_xy)
-    torch.cuda.synchronize()
-    errs = {"scan": (k_scan - p_scan).abs().max().item()}
-    for name, a, b in zip(("h00", "h10", "h01", "h11", "tx", "ty"), k_corners, p_corners):
-        errs[name] = (a - b).abs().max().item()
-    sampler_err = max(errs.values())
-    emit("sampler_vs_plain", envs=N, raster=list(sprobe.raster.shape),
-         scan_points=scan_xy.shape[1], contact_points=con_xy.shape[1], max_abs_err=errs,
-         tolerance_m=TOL_SAMPLER_M, scan_range_m=[p_scan.min().item(), p_scan.max().item()],
-         finite=bool(torch.isfinite(k_scan).all()))
-    if not sampler_err <= TOL_SAMPLER_M or not bool(torch.isfinite(k_scan).all()):
-        raise AssertionError(f"sampler disagrees with its plain version: {errs}")
-    del env, kernel, tenv
+    if "sampler" in phases:
+        tenv, tcfg, _ = registry.make_env("humanoid_ppo_terrain", device=DEVICE)
+        world = tenv.terrain_world
+        sprobe = TerrainSampler(world.height, tcfg.terrain.vertical_scale,
+                                world.horizontal_scale, world.border, device=DEVICE)
+        scan_xy, con_xy = sampler_points(tenv)
+        del tenv
+        k_scan, k_corners = sprobe(scan_xy, con_xy)
+        p_scan, p_corners = sprobe.plain(scan_xy, con_xy)
+        torch.cuda.synchronize()
+        errs = {"scan": (k_scan - p_scan).abs().max().item()}
+        for name, a, b in zip(("h00", "h10", "h01", "h11", "tx", "ty"), k_corners, p_corners):
+            errs[name] = (a - b).abs().max().item()
+        sampler_err = max(errs.values())
+        emit("sampler_vs_plain", envs=N, raster=list(sprobe.raster.shape),
+             scan_points=scan_xy.shape[1], contact_points=con_xy.shape[1], max_abs_err=errs,
+             tolerance_m=TOL_SAMPLER_M, scan_range_m=[p_scan.min().item(), p_scan.max().item()],
+             finite=bool(torch.isfinite(k_scan).all()))
+        if not sampler_err <= TOL_SAMPLER_M or not bool(torch.isfinite(k_scan).all()):
+            raise AssertionError(f"sampler disagrees with its plain version: {errs}")
 
     # ---- 3d. the control step's penalty instance vs plain ----
-    pprobe = ControlStepKernel(model, *probe.gains, probe.contact_params, None, probe.dt)
-    penalty = {
-        "flat_pressed_shipping": compare(pprobe, model, on_flat, 10, True, True),
-        "flat_pressed_exact": compare(pprobe, model, on_flat, 1, False, False),
-        "all_ramp_pressed_shipping": compare(pprobe, model, with_offsets(ramp_pressed), 10, True,
-                                             True, gains=gains, body=body, planes=planes),
-    }
-    emit("penalty_vs_plain", envs=N, ramp_gradient=RAMP,
-         tolerance={"du": TOL_DU, "base_pos": TOL_POS,
-                    "foot_force_over_weight": TOL_FOOT_FRACTION}, **penalty)
-    for name, r in penalty.items():
-        check_within(f"penalty {name}", r)
-    control = compare(pprobe, model, with_offsets(ramp_pressed), 10, True, True, drop="planes",
-                      gains=gains, body=body, planes=planes)
-    emit("penalty_controls", envs=N, plain_without_planes=control)
-    if within(control):
-        raise AssertionError(f"penalty: the bounds do not see the missing planes: {control}")
-    results["penalty"] = penalty["flat_pressed_shipping"]
+    if "penalty" in phases:
+        penalty = {
+            "flat_pressed_shipping": compare(pprobe, model, on_flat, 10, True, True),
+            "flat_pressed_exact": compare(pprobe, model, on_flat, 1, False, False),
+            "all_ramp_pressed_shipping": compare(pprobe, model, with_offsets(ramp_pressed), 10,
+                                                 True, True, gains=gains, body=body,
+                                                 planes=planes),
+        }
+        emit("penalty_vs_plain", envs=N, ramp_gradient=RAMP, design=pprobe.design(),
+             tolerance=tolerance, **penalty)
+        for name, r in penalty.items():
+            check_within(f"penalty {name}", r)
+        control = compare(pprobe, model, with_offsets(ramp_pressed), 10, True, True,
+                          drop="planes", gains=gains, body=body, planes=planes)
+        emit("penalty_controls", envs=N, plain_without_planes=control)
+        if within(control):
+            raise AssertionError(f"penalty: the bounds do not see the missing planes: {control}")
+        results["penalty"] = penalty["flat_pressed_shipping"]
 
     # ---- 3e. the warm-started PGS instance vs plain; control: the cold
     # plain version must fall outside the bounds, in the pressed state or,
     # failing that, in a short drop onto the ground ----
-    wprobe = ControlStepKernel(model, *probe.gains, probe.contact_params,
-                               probe.pgs_params._replace(warm_start=True), probe.dt)
-    for state_name, inputs in (("pressed_1mm", on_flat), ("drop", dropped(settled, model.nj))):
-        warm = {"shipping": compare(wprobe, model, inputs, 10, True, True),
-                "unfrozen": compare(wprobe, model, inputs, 10, False, False)}
-        control = compare(wprobe, model, inputs, 10, True, True, plain_of=probe)
-        emit("warm_compare", envs=N, state=state_name, sweeps=sweeps,
-             tolerance={"du": TOL_DU, "base_pos": TOL_POS,
-                        "foot_force_over_weight": TOL_FOOT_FRACTION},
-             **warm, control_cold_plain=control)
-        for name, r in warm.items():
-            check_within(f"warm {name} ({state_name})", r)
-        if not within(control):
-            break
-    else:
-        raise AssertionError(f"warm: the bounds do not tell the cold plain version: {control}")
-    results["warm"] = warm["shipping"]
+    if "warm" in phases:
+        for state_name, inputs in (("pressed_1mm", on_flat), ("drop", dropped(settled, model.nj))):
+            warm = {"shipping": compare(wprobe, model, inputs, 10, True, True),
+                    "unfrozen": compare(wprobe, model, inputs, 10, False, False),
+                    "extras_ramp": compare(wprobe, model, with_offsets(ramp_pressed), 10, True,
+                                           True, gains=gains, body=body, planes=planes)}
+            control = compare(wprobe, model, inputs, 10, True, True, plain_of=probe)
+            emit("warm_compare", envs=N, state=state_name, sweeps=sweeps, tolerance=tolerance,
+                 **warm, control_cold_plain=control)
+            for name, r in warm.items():
+                check_within(f"warm {name} ({state_name})", r)
+            if not within(control):
+                break
+        else:
+            raise AssertionError(
+                f"warm: the bounds do not tell the cold plain version: {control}")
+        results["warm"] = warm["shipping"]
+
+    # ---- 3f. determinism: the PGS instances REPEATS times on the same
+    # inputs give the same bits (a missing sync between a team's lanes
+    # shows as differences from run to run) ----
+    if "determinism" in phases:
+        runs = {
+            "shipping": (probe, settled, (10, True, True), {}),
+            "exact": (probe, on_flat, (1, False, False), {}),
+            "warm": (wprobe, settled, (10, True, True), {}),
+            "extras": (probe, with_offsets(on_ramp), (10, True, True),
+                       {"gains": gains, "body": body, "planes": planes}),
+        }
+        same = {}
+        for name, (k, inputs, args, kw) in runs.items():
+            first = k(*inputs, *args, **kw)
+            outs = [k(*inputs, *args, **kw) for _ in range(REPEATS - 1)]
+            same[name] = [torch.equal(first[0], out[0])
+                          and all(torch.equal(x, y) for x, y in zip(first[1], out[1]))
+                          for out in outs]
+        emit("determinism", envs=N, repeats=REPEATS, identical=same)
+        if not all(all(v) for v in same.values()):
+            raise AssertionError(f"the control step gave different outputs on the same inputs: "
+                                 f"{same}")
 
     # ---- 4. the main paths: every physics path, each with its kernels ----
     S = STEPS_PER_ITERATION
@@ -588,7 +653,7 @@ def main():
          {"solve_launches": S * D}),
     ]
     launches, summaries = {}, {}
-    for path, task, sim, iterations, nonzero in paths:
+    for path, task, sim, iterations, nonzero in (paths if "train" in phases else ()):
         t_path = time.perf_counter()
         cfg, _ = registry.get_cfgs(task)
         n_envs = N * cfg.env.num_envs // 4096      # the task's count: humanoid_ppo_8k 2 N
@@ -627,95 +692,113 @@ def main():
 
     # ---- 5. kernel times against their bounds ----
     timing = {}
-    pack, masses, friction, targets = settled
-    rpack, rmasses, rfriction, rtargets = with_offsets(on_ramp)
-    instances = {
-        "exact": (probe, (pack, masses, friction, targets), (1, False, False), {}),
-        "shipping": (probe, (pack, masses, friction, targets), (10, True, True), {}),
-        "extras": (probe, (rpack, rmasses, rfriction, rtargets), (10, True, True),
-                   {"gains": gains, "body": body, "planes": planes}),
-        "penalty": (pprobe, (pack, masses, friction, targets), (10, True, True), {}),
-        "warm": (wprobe, (pack, masses, friction, targets), (10, True, True), {}),
-    }
-    for name, (k, inputs, args, kw) in instances.items():
-        def run_kernel():
-            k(*inputs, *args, **kw)
+    if "time" in phases:
+        pack, masses, friction, targets = settled
+        # shipping without sweeps: the sweeps' share of the shipping time
+        no_sweeps = ControlStepKernel(model, *probe.gains, probe.contact_params,
+                                      probe.pgs_params._replace(iterations=0), probe.dt)
+        instances = {
+            "exact": (probe, settled, (1, False, False), {}),
+            "shipping": (probe, settled, (10, True, True), {}),
+            "shipping_no_sweeps": (no_sweeps, settled, (10, True, True), {}),
+            "extras": (probe, with_offsets(on_ramp), (10, True, True),
+                       {"gains": gains, "body": body, "planes": planes}),
+            "penalty": (pprobe, settled, (10, True, True), {}),
+            "warm": (wprobe, settled, (10, True, True), {}),
+        }
+        for name, (k, inputs, args, kw) in instances.items():
+            def run_kernel():
+                k(*inputs, *args, **kw)
 
-        def run_plain():
-            k.plain(*inputs, *args, **kw)
+            def run_plain():
+                k.plain(*inputs, *args, **kw)
+
+            for _ in range(3):
+                run_kernel()
+            ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
+            run_plain()
+            plain_ms = cuda_ms(run_plain, 3)
+            flags = {f: f in kw for f in ("gains", "body", "planes")}
+            pgs = k.pgs_params is not None
+            ops = operations_per_env(model, args[0], args[1], args[2],
+                                     k.pgs_params.iterations if pgs else 0, pgs=pgs, **flags) * N
+            timing[name] = {"ms": ms, "plain_ms": plain_ms, "design": k.design(),
+                            **bound(ops, launch_bytes(model, N, **flags))}
+            emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
+        # the warm and the shipping instance in turns (shipping, warm, warm,
+        # shipping): does the carry cost time?
+        turns = []
+        for name in ("shipping", "warm", "warm", "shipping"):
+            k, inputs, args, _ = instances[name]
+            turns.append([name, cuda_ms(lambda: k(*inputs, *args), TIMED_LAUNCHES)])
+        emit("warm_vs_shipping_time", launches_timed=TIMED_LAUNCHES, turns=turns)
+
+    if "time" in phases and "sampler" in phases:
+        def run_sampler():
+            sprobe(scan_xy, con_xy)
+
+        def run_sampler_plain():
+            sample_plain(sprobe.raster, sprobe.vs, sprobe.hs, sprobe.border, scan_xy, con_xy)
 
         for _ in range(3):
-            run_kernel()
-        ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
-        run_plain()
-        plain_ms = cuda_ms(run_plain, 3)
-        flags = {f: f in kw for f in ("gains", "body", "planes")}
-        pgs = k.pgs_params is not None
-        ops = operations_per_env(model, args[0], args[1], args[2], sweeps if pgs else 0,
-                                 pgs=pgs, **flags) * N
-        timing[name] = {"ms": ms, "plain_ms": plain_ms,
-                        **bound(ops, launch_bytes(model, N, **flags))}
-        emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
-    # the warm and the shipping instance in turns (shipping, warm, warm,
-    # shipping): does the carry cost time?
-    turns = []
-    for name in ("shipping", "warm", "warm", "shipping"):
-        k, inputs, args, _ = instances[name]
-        turns.append([name, cuda_ms(lambda: k(*inputs, *args), TIMED_LAUNCHES)])
-    emit("warm_vs_shipping_time", launches_timed=TIMED_LAUNCHES, turns=turns)
+            run_sampler()
+        s_ms = cuda_ms(run_sampler, TIMED_SAMPLES)
+        run_sampler_plain()
+        s_plain_ms = cuda_ms(run_sampler_plain, 10)
+        n_scan, n_con = scan_xy.shape[0] * scan_xy.shape[1], con_xy.shape[0] * con_xy.shape[1]
+        cells = touched_cells(sprobe.raster, sprobe.hs, sprobe.border, scan_xy, con_xy)
+        timing["sampler"] = {"ms": s_ms, "plain_ms": s_plain_ms, "raster_cells_read": cells,
+                             **bound(SAMPLER_OPS_PER_SCAN * n_scan
+                                     + SAMPLER_OPS_PER_CONTACT * n_con,
+                                     sample_bytes(n_scan, n_con, cells))}
+        emit("sampler_time", launches_timed=TIMED_SAMPLES, **timing["sampler"])
 
-    def run_sampler():
-        sprobe(scan_xy, con_xy)
-
-    def run_sampler_plain():
-        sample_plain(sprobe.raster, sprobe.vs, sprobe.hs, sprobe.border, scan_xy, con_xy)
-
-    for _ in range(3):
-        run_sampler()
-    s_ms = cuda_ms(run_sampler, TIMED_SAMPLES)
-    run_sampler_plain()
-    s_plain_ms = cuda_ms(run_sampler_plain, 10)
-    n_scan, n_con = scan_xy.shape[0] * scan_xy.shape[1], con_xy.shape[0] * con_xy.shape[1]
-    cells = touched_cells(sprobe.raster, sprobe.hs, sprobe.border, scan_xy, con_xy)
-    timing["sampler"] = {"ms": s_ms, "plain_ms": s_plain_ms, "raster_cells_read": cells,
-                         **bound(SAMPLER_OPS_PER_SCAN * n_scan + SAMPLER_OPS_PER_CONTACT * n_con,
-                                 sample_bytes(n_scan, n_con, cells))}
-    emit("sampler_time", launches_timed=TIMED_SAMPLES, **timing["sampler"])
-
-    # the Cholesky kernels on the settled robots' mass matrices, beside the
-    # plain versions and the library calls (timed here only; the port never
-    # calls them)
-    n = model.nv
-    L_crba = linalg.chol_factor_unrolled(crba_M)
-    calls = {
-        "chol_factor": (lambda: lprobe.factor_spd_batch(crba_M),
-                        lambda: linalg.chol_factor_unrolled(crba_M),
-                        lambda: torch.linalg.cholesky_ex(crba_M), "torch.linalg.cholesky_ex"),
-        "chol_apply": (lambda: lprobe.apply_spd_batch(L_crba, crba_b),
-                       lambda: linalg.chol_apply_unrolled(L_crba, crba_b),
-                       lambda: torch.cholesky_solve(crba_b[..., None], L_crba),
-                       "torch.cholesky_solve"),
-        "chol_solve": (lambda: lprobe.solve_spd_batch(crba_M, crba_b),
-                       lambda: linalg.chol_solve_unrolled(crba_M, crba_b),
-                       lambda: torch.cholesky_solve(crba_b[..., None],
-                                                    torch.linalg.cholesky_ex(crba_M).L),
-                       "torch.linalg.cholesky_ex then torch.cholesky_solve"),
-    }
-    for name, (run_k, run_p, run_lib, lib_name) in calls.items():
-        for fn in (run_k, run_p, run_lib):
-            fn()
-        timing[name] = {"ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
-                        "library_ms": cuda_ms(run_lib, TIMED_LINALG), "library": lib_name,
-                        **bound(linalg.operations_per_env(name, n) * N,
-                                linalg.bytes_per_env(name, n) * N)}
-        emit(f"{name}_time", launches_timed=TIMED_LINALG, n=n, **timing[name])
+    if "time" in phases and "linalg" in phases:
+        # the Cholesky kernels on the settled robots' mass matrices, beside
+        # the plain versions and the library calls (timed here only; the port
+        # never calls them)
+        n = model.nv
+        L_crba = linalg.chol_factor_unrolled(crba_M)
+        calls = {
+            "chol_factor": (lambda: lprobe.factor_spd_batch(crba_M),
+                            lambda: linalg.chol_factor_unrolled(crba_M),
+                            lambda: torch.linalg.cholesky_ex(crba_M), "torch.linalg.cholesky_ex"),
+            "chol_apply": (lambda: lprobe.apply_spd_batch(L_crba, crba_b),
+                           lambda: linalg.chol_apply_unrolled(L_crba, crba_b),
+                           lambda: torch.cholesky_solve(crba_b[..., None], L_crba),
+                           "torch.cholesky_solve"),
+            "chol_solve": (lambda: lprobe.solve_spd_batch(crba_M, crba_b),
+                           lambda: linalg.chol_solve_unrolled(crba_M, crba_b),
+                           lambda: torch.cholesky_solve(crba_b[..., None],
+                                                        torch.linalg.cholesky_ex(crba_M).L),
+                           "torch.linalg.cholesky_ex then torch.cholesky_solve"),
+        }
+        for name, (run_k, run_p, run_lib, lib_name) in calls.items():
+            for fn in (run_k, run_p, run_lib):
+                fn()
+            timing[name] = {"ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
+                            "library_ms": cuda_ms(run_lib, TIMED_LINALG), "library": lib_name,
+                            **bound(linalg.operations_per_env(name, n) * N,
+                                    linalg.bytes_per_env(name, n) * N)}
+            emit(f"{name}_time", launches_timed=TIMED_LINALG, n=n, **timing[name])
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated())
     emit("paths_wall_s", **{p: v["wall_s"] for p, v in summaries.items()},
          script_s=time.perf_counter() - t_start)
 
-    # ---- 6. the table and the last line ----
+    # ---- 6. the table (when every phase ran) and the last line ----
     print(smi, flush=True)
+    if set(PHASES) <= phases:
+        print(json.dumps(kernel_table(results, timing, launches, sampler_err, linalg_err,
+                                      sweeps, n=model.nv, design={
+                                          "pgs": probe.design(), "penalty": pprobe.design()})),
+              flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
 
+
+def kernel_table(results, timing, launches, sampler_err, linalg_err, sweeps, n, design):
+    """The kernels line: one row per kernel, the control step's instances
+    inside its row."""
     def row(name, result, t, **more):
         return {"max_abs_err": result, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -725,7 +808,6 @@ def main():
         return {p: v[kernel] for p, v in launches.items()}
 
     cs_launches = by_path("control_step_kernel")
-    ship = timing["shipping"]
     linalg_rows = [
         {"name": f"{name}_kernel", "route": "cuda", "source": "humanoid_tpu_torch/csrc/linalg.cu",
          "replaces": f"humanoid_tpu/ops/linalg.py:{line}",
@@ -735,14 +817,15 @@ def main():
                library=timing[name]["library"])}
         for name, key, line in (("chol_factor", "factor", 144), ("chol_apply", "apply", 165),
                                 ("chol_solve", "solve", 108))]
-    print(json.dumps({"kernels": [
+    return {"kernels": [
         {
             "name": "control_step_kernel", "route": "cuda",
             "source": "humanoid_tpu_torch/csrc/control_step.cu",
             "replaces": "humanoid_tpu/ops/physics_kernel.py:841",
             "launches": sum(cs_launches.values()), "launches_by_path": cs_launches,
+            "design": design,
             **row(f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps}",
-                  results["shipping"]["max_abs_err"], ship),
+                  results["shipping"]["max_abs_err"], timing["shipping"]),
             "exact_instance": row(f"decimation=1 freeze=0 freeze_prep=0 sweeps={sweeps}",
                                   results["exact"]["max_abs_err"], timing["exact"],
                                   replaces="humanoid_tpu/ops/physics_kernel.py:808"),
@@ -769,9 +852,7 @@ def main():
             **row("187 scan + 9 contact points per env", sampler_err, timing["sampler"]),
         },
         *linalg_rows,
-    ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
-          flush=True)
+    ]}
 
 
 if __name__ == "__main__":

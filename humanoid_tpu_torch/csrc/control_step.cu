@@ -38,27 +38,47 @@
 // Cholesky factor (unless frozen), the penalty forces (the termination
 // spheres; with pgs = 0 the sole corners too), then with pgs = 1 the free
 // velocity, the contact prep (unless frozen) and the PGS sweeps, with
-// pgs = 0 the acceleration, and semi-implicit Euler. State stays in the
-// thread between substeps; the kernel writes the state and the last
-// substep's diagnostics.
+// pgs = 0 the acceleration, and semi-implicit Euler. The kernel writes the
+// state and the last substep's diagnostics.
 //
-// Design: one thread per env. The robot is data, not code: the wrapper
-// packs a ModelTable (topology, joint frames, inertias, gains, contact
-// points, solver constants) that each block copies into shared memory, so
-// this source is generic in the robot and its outer loops stay loops.
-// Per-thread arrays are sized at compile time for nj <= 18.
+// The robot is data, not code: the wrapper packs a ModelTable (topology,
+// joint frames, inertias, gains, contact points, solver constants) that
+// each block copies into shared memory, so this source is generic in the
+// robot and its outer loops stay loops. Arrays are sized at compile time
+// for nj <= 18 and 8 sole points.
 //
 // What bounds it: the work is ~90,000 (penalty) to ~230,000 (PGS)
 // dependent fp32 operations per env and control step against ~740 bytes
 // moved per env (~1,700 with the gains, body and planes inputs), so the
-// operation count sets the bound. At the shipping 4096 envs one thread
-// per env fills about 1.5% of the card's resident thread slots (132 SMs x
-// 2048), and the per-thread arrays live in local memory: the kernel is
-// latency-bound far above that bound. A warp or a few threads per env is
-// the redesign that addresses it.
+// operation count sets the bound; at 4096 envs the card holds every env at
+// once, and each env's chain of dependent operations sets the time.
 //
-// The per-env step is __host__ __device__ so that a host compiler can check
-// its arithmetic; the wrapper never runs it on the host.
+// Design of the PGS instances: a team of TEAM lanes per env (TEAM = 4:
+// eight envs per block, their teams interleaved in one warp). About 60% of
+// an env's operations are contact-row work, which the team spreads over
+// its lanes: the prep's Jacobian rows, column solves and Delassus entries,
+// the free row velocities, the sweeps' row products (reduced with
+// shuffles, Gauss-Seidel order kept: point k's impulses are written before
+// point k+1's products read them) and the impulse map J^T lam. The tree
+// recursions (kinematics, velocity/bias, CRBA and factor, the triangular
+// solves, the penalty spheres and the integration) stay serial on the
+// team's lane 0, in its own local Tree. The contact arrays, the factor and
+// what the row work reads of the tree (joint screws, contact point
+// offsets) live in shared memory, one Contact per env at the table's
+// maximum sizes. The serial part then sets the time: each warp
+// instruction of it, and each local-memory request for lane 0's Tree
+// (mostly served by L2, as shared memory takes most of each SM's L1),
+// serves as many envs as the warp holds teams. So the team is small, four
+// lanes and eight teams per warp (eight lanes and four teams ran slower,
+// PERF.md), and the teams interleave, so that their lanes 0 share a sector.
+//
+// Design of the penalty instance: one thread per env, its Tree and factor
+// in local memory (it has no row work to spread).
+//
+// The team step is __host__ __device__ code in which, outside the device
+// pass, the shuffles and syncs compile to nothing: at TEAM = 1 a host
+// compiler builds it and the CPU tests hold it against the plain version.
+// The wrapper never runs it on the host.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -104,21 +124,39 @@ struct ModelTable {
   float dt, kn, cn, v_reg, erp, cfm, slop;
 };
 
-// Per-env working set. Spatial inertias are kept compact: mass m, first
-// moment h = m (com - A) and the rotational inertia Ibar about the base
-// point A (xx xy xz yy yz zz); I = [[Ibar, h~], [h~^T, m 1]].
-struct Work {
+// One env's tree arrays, serial work. Spatial inertias are kept compact:
+// mass m, first moment h = m (com - A) and the rotational inertia Ibar
+// about the base point A (xx xy xz yy yz zz); I = [[Ibar, h~], [h~^T, m 1]].
+struct Tree {
   float pos[MAX_NB][3], quat[MAX_NB][4];
   float w[MAX_NJ][3], lin[MAX_NJ][3];     // joint screw S_k = [w; lin]
   float isp[MAX_NB][10], ic[MAX_NB][10];  // body and composite inertias
   float v[MAX_NB][6], a[MAX_NB][6], g[MAX_NB][6];
-  float C[MAX_NV];
-  float L[TRI(MAX_NV)], invd[MAX_NV];     // packed lower Cholesky factor
-  float J[MAX_R][MAX_NV];                 // contact rows n, t1, t2; cols 3..5 hold the frame
-  float A[TRI(MAX_R)];                    // packed lower Delassus operator
-  float tmp[MAX_NV], rhs[MAX_NV], ufree[MAX_NV], lam[MAX_R], vf[MAX_R];
-  float phi[MAX_FPTS];
+  float C[MAX_NV], tmp[MAX_NV], rhs[MAX_NV];
   float foot_f[MAX_FEET][3], term_f[MAX_TERM], tau[MAX_NJ];
+};
+
+// The mass-matrix factor: packed lower Cholesky factor and 1 / diagonal.
+struct Factor {
+  float L[TRI(MAX_NV)], invd[MAX_NV];
+};
+
+// One env's contact arrays, in shared memory on the PGS kernel: what the
+// team's lanes read from one another.
+struct Contact {
+  float J[MAX_R][MAX_NV + 1]; // contact rows n, t1, t2; cols 3..5 hold the frame
+                              // (+1: lanes reading rows side by side hit distinct banks)
+  float A[TRI(MAX_R)];        // packed lower Delassus operator
+  Factor F;
+  float lam[MAX_R], vf[MAX_R], ufree[MAX_NV], jl[MAX_NV], phi[MAX_FPTS];
+  float rel[MAX_FPTS][3];     // sole points minus the base point (prep)
+  float w[MAX_NJ][3], lin[MAX_NJ][3];   // the joint screws (prep)
+};
+
+// One env's whole working set, for a host build of the per-env step.
+struct Work {
+  Tree t;
+  Contact c;
 };
 
 HD inline int tri(int i, int j) { return i * (i + 1) / 2 + j; }  // j <= i
@@ -171,7 +209,7 @@ HD inline void inertia_apply(const float I[10], const float s[6], float y[6]) {
 
 // Forward kinematics, joint screws and compact spatial inertias.
 HD void kinematics(const ModelTable& m, const float bp[3], const float bq[4],
-                   const float* qj, const float* mass, const float* body, Work& W) {
+                   const float* qj, const float* mass, const float* body, Tree& W) {
   const int nj = m.nj;
   for (int i = 0; i < 3; ++i) W.pos[0][i] = bp[i];
   for (int i = 0; i < 4; ++i) W.quat[0][i] = bq[i];
@@ -224,7 +262,7 @@ HD void kinematics(const ModelTable& m, const float bp[3], const float bq[4],
 
 // Body velocities and the generalized bias forces C (gravity, Coriolis,
 // joint damping).
-HD void vel_bias(const ModelTable& m, const float* u, Work& W) {
+HD void vel_bias(const ModelTable& m, const float* u, Tree& W) {
   const int nj = m.nj;
   for (int i = 0; i < 6; ++i) { W.v[0][i] = u[i]; W.a[0][i] = 0.0f; }
   W.a[0][5] = m.gravity;
@@ -265,8 +303,8 @@ HD void vel_bias(const ModelTable& m, const float* u, Work& W) {
                  m.damping[k] * u[6 + k];
 }
 
-// CRBA mass matrix into W.L (packed lower), factored in place.
-HD void crba_chol(const ModelTable& m, Work& W) {
+// CRBA mass matrix into F.L (packed lower), factored in place.
+HD void crba_chol(const ModelTable& m, Tree& W, Factor& F) {
   const int nj = m.nj, nv = nj + 6;
   for (int b = 0; b <= nj; ++b)
     for (int i = 0; i < 10; ++i) W.ic[b][i] = W.isp[b][i];
@@ -281,57 +319,57 @@ HD void crba_chol(const ModelTable& m, Work& W) {
   const float hx[3][3] = {{0.0f, -h[2], h[1]}, {h[2], 0.0f, -h[0]}, {-h[1], h[0], 0.0f}};
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j <= i; ++j) {
-      W.L[tri(i, j)] = Ibar[i][j];
-      W.L[tri(3 + i, 3 + j)] = i == j ? I0[0] : 0.0f;
+      F.L[tri(i, j)] = Ibar[i][j];
+      F.L[tri(3 + i, 3 + j)] = i == j ? I0[0] : 0.0f;
     }
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) W.L[tri(3 + i, j)] = hx[j][i];   // (h~)^T
-  // joint rows: F = IC_(body k+1) S_k
+    for (int j = 0; j < 3; ++j) F.L[tri(3 + i, j)] = hx[j][i];   // (h~)^T
+  // joint rows: f = IC_(body k+1) S_k
   for (int k = 0; k < nj; ++k) {
-    float S[6], F[6];
+    float S[6], f[6];
     for (int i = 0; i < 3; ++i) { S[i] = W.w[k][i]; S[3 + i] = W.lin[k][i]; }
-    inertia_apply(W.ic[k + 1], S, F);
+    inertia_apply(W.ic[k + 1], S, f);
     const int i = 6 + k;
-    for (int j = 0; j < 6; ++j) W.L[tri(i, j)] = F[j];
+    for (int j = 0; j < 6; ++j) F.L[tri(i, j)] = f[j];
     const unsigned int anc = m.anc[k + 1];
     for (int b = 0; b <= k; ++b) {
       float val = 0.0f;
       if ((anc >> b) & 1u)
-        val = dot3(W.w[b], F) + dot3(W.lin[b], F + 3);
-      W.L[tri(i, 6 + b)] = val;
+        val = dot3(W.w[b], f) + dot3(W.lin[b], f + 3);
+      F.L[tri(i, 6 + b)] = val;
     }
-    W.L[tri(i, i)] += m.armature[k];
+    F.L[tri(i, i)] += m.armature[k];
   }
   // dense left-looking Cholesky, in place
   for (int j = 0; j < nv; ++j) {
-    float s = W.L[tri(j, j)];
-    for (int k = 0; k < j; ++k) s -= W.L[tri(j, k)] * W.L[tri(j, k)];
+    float s = F.L[tri(j, j)];
+    for (int k = 0; k < j; ++k) s -= F.L[tri(j, k)] * F.L[tri(j, k)];
     const float iv = rsqrtf(s);
-    W.invd[j] = iv;
-    W.L[tri(j, j)] = s * iv;
+    F.invd[j] = iv;
+    F.L[tri(j, j)] = s * iv;
     for (int i = j + 1; i < nv; ++i) {
-      float t = W.L[tri(i, j)];
-      for (int k = 0; k < j; ++k) t -= W.L[tri(i, k)] * W.L[tri(j, k)];
-      W.L[tri(i, j)] = t * iv;
+      float t = F.L[tri(i, j)];
+      for (int k = 0; k < j; ++k) t -= F.L[tri(i, k)] * F.L[tri(j, k)];
+      F.L[tri(i, j)] = t * iv;
     }
   }
 }
 
 // x = M^-1 b with the packed factor; x may alias b.
-HD void chol_solve(const Work& W, int nv, const float* b, float* x) {
+HD void chol_solve(const Factor& F, int nv, const float* b, float* x) {
   for (int i = 0; i < nv; ++i) {
     float s = b[i];
-    for (int k = 0; k < i; ++k) s -= W.L[tri(i, k)] * x[k];
-    x[i] = s * W.invd[i];
+    for (int k = 0; k < i; ++k) s -= F.L[tri(i, k)] * x[k];
+    x[i] = s * F.invd[i];
   }
   for (int i = nv - 1; i >= 0; --i) {
     float s = x[i];
-    for (int k = i + 1; k < nv; ++k) s -= W.L[tri(k, i)] * x[k];
-    x[i] = s * W.invd[i];
+    for (int k = i + 1; k < nv; ++k) s -= F.L[tri(k, i)] * x[k];
+    x[i] = s * F.invd[i];
   }
 }
 
-HD inline void point_world(const Work& W, int b, const float off[3],
+HD inline void point_world(const Tree& W, int b, const float off[3],
                            float p[3]) {
   float o[3];
   qrot(W.quat[b], off, o);
@@ -355,62 +393,11 @@ HD inline float plane_gap(const float* pl, const float p[3]) {
   return (p[2] - (pl[0] + pl[1] * p[0] + pl[2] * p[1])) * inv_l;
 }
 
-// Contact rows and the Delassus operator A = J M^-1 J^T, from the current
-// kinematics and factor. Frames: n = z, t1 = x, t2 = y on the flat plane;
-// on a plane, its normal and the branchless tangent basis of the reference
-// kernel (t1 = n x (x or y axis), normalized; t2 = n x t1).
-HD void pgs_prepare(const ModelTable& m, const float* planes, Work& W) {
-  const int nj = m.nj, nv = nj + 6, R = 3 * m.n_fpts;
-  for (int c = 0; c < m.n_fpts; ++c) {
-    const int b = m.fpt_body[c];
-    const unsigned int anc = m.anc[b];
-    float p[3], rel[3], fr[3][3];
-    point_world(W, b, m.fpt_off[c], p);
-    for (int i = 0; i < 3; ++i) rel[i] = p[i] - W.pos[0][i];
-    if (planes) {
-      plane_normal(planes + 3 * c, fr[0]);
-      const float ux = fabsf(fr[0][0]) < 0.9f ? 1.0f : 0.0f;
-      const float a[3] = {ux, 1.0f - ux, 0.0f};
-      cross3(fr[0], a, fr[1]);
-      const float it1 = rsqrtf(dot3(fr[1], fr[1]) + 1e-12f);
-      for (int i = 0; i < 3; ++i) fr[1][i] *= it1;
-      cross3(fr[0], fr[1], fr[2]);
-    } else {
-      for (int d = 0; d < 3; ++d)
-        for (int i = 0; i < 3; ++i) fr[d][i] = 0.0f;
-      fr[0][2] = fr[1][0] = fr[2][1] = 1.0f;
-    }
-    for (int d = 0; d < 3; ++d) {
-      const float* e = fr[d];
-      float* row = W.J[3 * c + d];
-      cross3(rel, e, row);
-      for (int i = 0; i < 3; ++i) row[3 + i] = e[i];
-      for (int k = 0; k < nj; ++k) {
-        float val = 0.0f;
-        if ((anc >> k) & 1u) {
-          float wxr[3];
-          cross3(W.w[k], rel, wxr);
-          val = dot3(e, W.lin[k]) + dot3(e, wxr);
-        }
-        row[6 + k] = val;
-      }
-    }
-  }
-  for (int c = 0; c < R; ++c) {
-    chol_solve(W, nv, W.J[c], W.tmp);
-    for (int r = 0; r <= c; ++r) {
-      float s = 0.0f;
-      for (int i = 0; i < nv; ++i) s += W.J[r][i] * W.tmp[i];
-      W.A[tri(c, r)] = s;
-    }
-  }
-}
-
 // Penalty force f on world point p of body b (spring-damper normal force,
 // regularized Coulomb friction) against the plane pl, or the plane z = 0
 // with a vertical force when pl is null; adds its generalized force to
 // W.rhs and returns the normal force.
-HD float penalty_point(const ModelTable& m, Work& W, int b, const float p[3], const float* pl,
+HD float penalty_point(const ModelTable& m, Tree& W, int b, const float p[3], const float* pl,
                        float mu, float f[3]) {
   float rel[3], wr[3], vl[3], nm[3];
   for (int i = 0; i < 3; ++i) rel[i] = p[i] - W.pos[0][i];
@@ -444,10 +431,6 @@ HD float penalty_point(const ModelTable& m, Work& W, int b, const float p[3], co
   return fn;
 }
 
-HD inline float amat(const Work& W, int i, int j) {
-  return i >= j ? W.A[tri(i, j)] : W.A[tri(j, i)];
-}
-
 // The new velocity unew into the state: position, the quaternion
 // exponential map, joint angles.
 HD void integrate(int nj, float dt, const float* unew, float bp[3], float bq[4], float* qj,
@@ -475,174 +458,36 @@ struct EnvExtras {
   const float* planes;
 };
 
-// One substep from the thread's state, with PGS or penalty foot contact;
-// `prep` rebuilds the contact rows and Delassus operator, `factor` the
-// mass-matrix factor.
-template <bool PGS, bool WARM>
-HD void substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
-                const float* mass, float mu, const float* targets, const EnvExtras& x,
-                bool factor, bool prep, int iterations, Work& W) {
-  const int nj = m.nj, nv = nj + 6, K = m.n_fpts, R = 3 * K;
-  const float dt = m.dt;
-  for (int k = 0; k < nj; ++k) {
-    float t;
-    if (x.gains)
-      t = (x.gains[k] * (targets[k] - qj[k]) - x.gains[nj + k] * u[6 + k]) * x.gains[2 * nj + k];
-    else
-      t = m.kp[k] * (targets[k] - qj[k]) - m.kd[k] * u[6 + k];
-    W.tau[k] = fminf(fmaxf(t, -m.tau_lim[k]), m.tau_lim[k]);
-  }
-  kinematics(m, bp, bq, qj, mass, x.body, W);
-  vel_bias(m, u, W);
-  if (factor) crba_chol(m, W);
-
-  // penalty forces: the sole corners (penalty model), then the termination
-  // spheres, into the generalized force
-  for (int i = 0; i < nv; ++i) W.rhs[i] = 0.0f;
-  if (!PGS) {
-    for (int f = 0; f < m.n_feet; ++f)
-      for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
-    for (int c = 0; c < K; ++c) {
-      float p[3], f[3];
-      point_world(W, m.fpt_body[c], m.fpt_off[c], p);
-      penalty_point(m, W, m.fpt_body[c], p, x.planes ? x.planes + 3 * c : nullptr, mu, f);
-      for (int i = 0; i < 3; ++i) W.foot_f[m.fpt_foot[c]][i] += f[i];
-    }
-  }
-  for (int s = 0; s < m.n_term; ++s) {
-    float p[3], f[3];
-    point_world(W, m.term_body[s], m.term_off[s], p);
-    p[2] -= m.term_rad[s];
-    W.term_f[s] = penalty_point(m, W, m.term_body[s], p,
-                                x.planes ? x.planes + 3 * (K + s) : nullptr, mu, f);
-  }
-  for (int k = 0; k < nj; ++k) W.rhs[6 + k] += W.tau[k];
-  for (int i = 0; i < nv; ++i) W.rhs[i] -= W.C[i];
-  chol_solve(W, nv, W.rhs, W.tmp);
-  float corr[3], unew[MAX_NV];
-  cross3(u, u + 3, corr);
-  if (!PGS) {
-    // spatial -> conventional acceleration of the base origin with the old
-    // velocity, then semi-implicit Euler
-    for (int i = 0; i < 3; ++i) W.tmp[3 + i] += corr[i];
-    for (int i = 0; i < nv; ++i) unew[i] = u[i] + dt * W.tmp[i];
-    integrate(nj, dt, unew, bp, bq, qj, u);
-    return;
-  }
-  for (int i = 0; i < nv; ++i) W.ufree[i] = u[i] + dt * W.tmp[i];
-
-  if (prep) pgs_prepare(m, x.planes, W);
-
-  // fresh penetrations against the (possibly frozen) frames
-  for (int c = 0; c < K; ++c) {
-    float p[3];
-    point_world(W, m.fpt_body[c], m.fpt_off[c], p);
-    W.phi[c] = plane_gap(x.planes ? x.planes + 3 * c : nullptr, p);
-  }
-  for (int r = 0; r < R; ++r) {
-    float s = 0.0f;
-    for (int i = 0; i < nv; ++i) s += W.J[r][i] * W.ufree[i];
-    W.vf[r] = s;
-    if (!WARM) W.lam[r] = 0.0f;   // warm: the sweep starts from the carried W.lam
-  }
-  for (int it = 0; it < iterations; ++it) {
-    for (int k = 0; k < K; ++k) {
-      const int i0 = 3 * k;
-      float vrow[3];
-      for (int d = 0; d < 3; ++d) {
-        float s = W.vf[i0 + d];
-        for (int c = 0; c < R; ++c) s += amat(W, i0 + d, c) * W.lam[c];
-        vrow[d] = s;
-      }
-      const float act = W.phi[k] < 0.0f ? 1.0f : 0.0f;
-      const float bias = -(m.erp / dt) * fmaxf(-W.phi[k] - m.slop, 0.0f);
-      const float Ann = amat(W, i0, i0);
-      const float gam = m.cfm * Ann;
-      const float ln = W.lam[i0];
-      const float ln_new = fmaxf(0.0f, ln - (vrow[0] + bias + gam * ln) / (Ann + gam)) * act;
-      const float dln = ln_new - ln;
-      const float vt1 = vrow[1] + amat(W, i0 + 1, i0) * dln;
-      const float vt2 = vrow[2] + amat(W, i0 + 2, i0) * dln;
-      const float a11 = amat(W, i0 + 1, i0 + 1) + gam;
-      const float a22 = amat(W, i0 + 2, i0 + 2) + gam;
-      const float a12 = amat(W, i0 + 1, i0 + 2);
-      const float det = a11 * a22 - a12 * a12;
-      const float r1 = vt1 + gam * W.lam[i0 + 1];
-      const float r2 = vt2 + gam * W.lam[i0 + 2];
-      const float lt1 = W.lam[i0 + 1] - (a22 * r1 - a12 * r2) / det;
-      const float lt2 = W.lam[i0 + 2] - (a11 * r2 - a12 * r1) / det;
-      const float tn = sqrtf(lt1 * lt1 + lt2 * lt2 + 1e-12f);
-      const float sc = fminf(1.0f, mu * ln_new / tn) * act;
-      W.lam[i0] = ln_new;
-      W.lam[i0 + 1] = lt1 * sc;
-      W.lam[i0 + 2] = lt2 * sc;
-    }
-  }
-  // u+ = u_free + M^-1 J^T lam
-  for (int i = 0; i < nv; ++i) {
-    float s = 0.0f;
-    for (int r = 0; r < R; ++r) s += W.J[r][i] * W.lam[r];
-    W.rhs[i] = s;
-  }
-  chol_solve(W, nv, W.rhs, W.tmp);
-  for (int f = 0; f < m.n_feet; ++f)
-    for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
-  for (int k = 0; k < K; ++k) {   // world force: frame^T lam / dt
-    float* ff = W.foot_f[m.fpt_foot[k]];
-    const float* lam = W.lam + 3 * k;
-    if (x.planes) {
-      for (int i = 0; i < 3; ++i)
-        ff[i] += (W.J[3 * k][3 + i] * lam[0] + W.J[3 * k + 1][3 + i] * lam[1] +
-                  W.J[3 * k + 2][3 + i] * lam[2]) / dt;
-    } else {   // flat frame: n = z, t1 = x, t2 = y
-      ff[0] += lam[1] / dt;
-      ff[1] += lam[2] / dt;
-      ff[2] += lam[0] / dt;
-    }
-  }
-
-  // integrate: spatial -> conventional correction with the old velocity,
-  // then semi-implicit Euler
-  for (int i = 0; i < nv; ++i) unew[i] = W.ufree[i] + W.tmp[i];
-  for (int i = 0; i < 3; ++i) unew[3 + i] += dt * corr[i];
-  integrate(nj, dt, unew, bp, bq, qj, u);
+// Env n's rows of the optional inputs, or null pointers.
+HD inline EnvExtras env_extras(const ModelTable& m, int n, const float* gains, const float* body,
+                               const float* planes) {
+  const int nj = m.nj, nb = nj + 1;
+  return EnvExtras{gains ? gains + static_cast<long long>(n) * 3 * nj : nullptr,
+                   body ? body + static_cast<long long>(n) * 9 * nb : nullptr,
+                   planes ? planes + static_cast<long long>(n) * 3 * (m.n_fpts + m.n_term)
+                          : nullptr};
 }
 
-// A whole control step for env n. State rows: [pos 3, quat 4, qj nj, u nv];
-// diag rows: body pos (3 nb), body quat (4 nb), body omega (3 nb), foot
-// forces (3 n_feet), termination forces (n_term), torques (nj).
-template <bool PGS, bool WARM>
-HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
-                          const float* masses, const float* friction, const float* targets,
-                          const float* gains, const float* body, const float* planes,
-                          float* state_out, float* diag, int decimation, bool freeze,
-                          bool freeze_prep, int iterations, Work& W) {
+// Env n's state rows [pos 3, quat 4, qj nj, u nv], masses and targets.
+HD void load_env(const ModelTable& m, int n, int N, const float* state, const float* masses,
+                 const float* targets, float bp[3], float bq[4], float* qj, float* u,
+                 float* mass, float* tgt) {
   const int nj = m.nj, nb = nj + 1, nv = nj + 6;
-  const EnvExtras x{gains ? gains + static_cast<long long>(n) * 3 * nj : nullptr,
-                    body ? body + static_cast<long long>(n) * 9 * nb : nullptr,
-                    planes ? planes + static_cast<long long>(n) * 3 * (m.n_fpts + m.n_term)
-                           : nullptr};
-  float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV], mass[MAX_NB], tgt[MAX_NJ];
   for (int i = 0; i < 3; ++i) bp[i] = state[i * N + n];
   for (int i = 0; i < 4; ++i) bq[i] = state[(3 + i) * N + n];
   for (int k = 0; k < nj; ++k) qj[k] = state[(7 + k) * N + n];
   for (int i = 0; i < nv; ++i) u[i] = state[(7 + nj + i) * N + n];
   for (int b = 0; b < nb; ++b) mass[b] = masses[n * nb + b];
   for (int k = 0; k < nj; ++k) tgt[k] = targets[n * nj + k];
-  const float mu = friction[n];
+}
 
-  const bool frozen_prep = PGS && freeze && freeze_prep;
-  if (freeze) {
-    kinematics(m, bp, bq, qj, mass, x.body, W);
-    crba_chol(m, W);
-    if (frozen_prep) pgs_prepare(m, x.planes, W);
-  }
-  if (WARM)
-    for (int r = 0; r < 3 * m.n_fpts; ++r) W.lam[r] = 0.0f;   // the carry starts at zero
-  for (int s = 0; s < decimation; ++s)
-    substep<PGS, WARM>(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, PGS && !frozen_prep,
-                       iterations, W);
-
+// Env n's new state and the diagnostics: body pos (3 nb), body quat (4 nb),
+// body omega (3 nb), foot forces (3 n_feet), termination forces (n_term),
+// torques (nj).
+HD void store_env(const ModelTable& m, int n, int N, const float bp[3], const float bq[4],
+                  const float* qj, const float* u, const Tree& W, float* state_out,
+                  float* diag) {
+  const int nj = m.nj, nb = nj + 1, nv = nj + 6;
   int row = 0;
   for (int i = 0; i < 3; ++i) state_out[(row++) * N + n] = bp[i];
   for (int i = 0; i < 4; ++i) state_out[(row++) * N + n] = bq[i];
@@ -661,55 +506,422 @@ HD void control_step_impl(const ModelTable& m, int n, int N, const float* state,
   for (int k = 0; k < nj; ++k) diag[(row++) * N + n] = W.tau[k];
 }
 
-// The contact model and the warm start are template arguments, so that
-// each instance carries only its own code: with the contact model tested
-// inside the substep, the PGS instance ran slower than before the penalty
-// path existed (PERF.md). The kernel launches one instance; this dispatch
-// serves a host build of the per-env step.
-HD void control_step_env(const ModelTable& m, int n, int N, const float* state,
-                         const float* masses, const float* friction, const float* targets,
-                         const float* gains, const float* body, const float* planes,
-                         float* state_out, float* diag, int decimation, bool pgs, bool warm,
-                         bool freeze, bool freeze_prep, int iterations, Work& W) {
-  if (pgs && warm)
-    control_step_impl<true, true>(m, n, N, state, masses, friction, targets, gains, body, planes,
-                                  state_out, diag, decimation, freeze, freeze_prep, iterations, W);
-  else if (pgs)
-    control_step_impl<true, false>(m, n, N, state, masses, friction, targets, gains, body,
-                                   planes, state_out, diag, decimation, freeze, freeze_prep,
-                                   iterations, W);
-  else
-    control_step_impl<false, false>(m, n, N, state, masses, friction, targets, gains, body,
-                                    planes, state_out, diag, decimation, freeze, freeze_prep,
-                                    iterations, W);
+// The serial head of a substep: PD torque, kinematics, the velocity/bias
+// recursion, the factor (with `factor`), the penalty forces (the sole
+// corners with `feet`, then the termination spheres) and the free
+// acceleration W.tmp = M^-1 (tau + penalty forces - C).
+HD void substep_head(const ModelTable& m, const float bp[3], const float bq[4], const float* qj,
+                     const float* u, const float* mass, float mu, const float* targets,
+                     const EnvExtras& x, bool factor, bool feet, Tree& W, Factor& F) {
+  const int nj = m.nj, nv = nj + 6, K = m.n_fpts;
+  for (int k = 0; k < nj; ++k) {
+    float t;
+    if (x.gains)
+      t = (x.gains[k] * (targets[k] - qj[k]) - x.gains[nj + k] * u[6 + k]) * x.gains[2 * nj + k];
+    else
+      t = m.kp[k] * (targets[k] - qj[k]) - m.kd[k] * u[6 + k];
+    W.tau[k] = fminf(fmaxf(t, -m.tau_lim[k]), m.tau_lim[k]);
+  }
+  kinematics(m, bp, bq, qj, mass, x.body, W);
+  vel_bias(m, u, W);
+  if (factor) crba_chol(m, W, F);
+  for (int i = 0; i < nv; ++i) W.rhs[i] = 0.0f;
+  if (feet) {
+    for (int f = 0; f < m.n_feet; ++f)
+      for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
+    for (int c = 0; c < K; ++c) {
+      float p[3], f[3];
+      point_world(W, m.fpt_body[c], m.fpt_off[c], p);
+      penalty_point(m, W, m.fpt_body[c], p, x.planes ? x.planes + 3 * c : nullptr, mu, f);
+      for (int i = 0; i < 3; ++i) W.foot_f[m.fpt_foot[c]][i] += f[i];
+    }
+  }
+  for (int s = 0; s < m.n_term; ++s) {
+    float p[3], f[3];
+    point_world(W, m.term_body[s], m.term_off[s], p);
+    p[2] -= m.term_rad[s];
+    W.term_f[s] = penalty_point(m, W, m.term_body[s], p,
+                                x.planes ? x.planes + 3 * (K + s) : nullptr, mu, f);
+  }
+  for (int k = 0; k < nj; ++k) W.rhs[6 + k] += W.tau[k];
+  for (int i = 0; i < nv; ++i) W.rhs[i] -= W.C[i];
+  chol_solve(F, nv, W.rhs, W.tmp);
 }
 
-#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// The penalty instance: one thread per env.
 
-#define THREADS 32  // one warp per block spreads 4096 envs over 128 SMs
+HD void penalty_substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
+                        const float* mass, float mu, const float* targets, const EnvExtras& x,
+                        bool factor, Tree& W, Factor& F) {
+  const int nj = m.nj, nv = nj + 6;
+  substep_head(m, bp, bq, qj, u, mass, mu, targets, x, factor, true, W, F);
+  // spatial -> conventional acceleration of the base origin with the old
+  // velocity, then semi-implicit Euler
+  float corr[3], unew[MAX_NV];
+  cross3(u, u + 3, corr);
+  for (int i = 0; i < 3; ++i) W.tmp[3 + i] += corr[i];
+  for (int i = 0; i < nv; ++i) unew[i] = u[i] + m.dt * W.tmp[i];
+  integrate(nj, m.dt, unew, bp, bq, qj, u);
+}
 
-// One kernel per instance (contact model, warm start): each gets the
-// registers and stack of its own code only.
-template <bool PGS, bool WARM>
-__global__ void __launch_bounds__(THREADS)
-control_step_kernel(const float* __restrict__ state, const float* __restrict__ masses,
-                    const float* __restrict__ friction, const float* __restrict__ targets,
-                    const float* __restrict__ gains, const float* __restrict__ body,
-                    const float* __restrict__ planes,
-                    float* __restrict__ state_out, float* __restrict__ diag, int N,
-                    const ModelTable* __restrict__ table, int decimation, int freeze,
-                    int freeze_prep, int iterations) {
-  __shared__ ModelTable sm;
+HD void penalty_control_step(const ModelTable& m, int n, int N, const float* state,
+                             const float* masses, const float* friction, const float* targets,
+                             const float* gains, const float* body, const float* planes,
+                             float* state_out, float* diag, int decimation, bool freeze,
+                             Tree& W, Factor& F) {
+  const EnvExtras x = env_extras(m, n, gains, body, planes);
+  float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV], mass[MAX_NB], tgt[MAX_NJ];
+  load_env(m, n, N, state, masses, targets, bp, bq, qj, u, mass, tgt);
+  const float mu = friction[n];
+  if (freeze) {
+    kinematics(m, bp, bq, qj, mass, x.body, W);
+    crba_chol(m, W, F);
+  }
+  for (int s = 0; s < decimation; ++s)
+    penalty_substep(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, W, F);
+  store_env(m, n, N, bp, bq, qj, u, W, state_out, diag);
+}
+
+// ---------------------------------------------------------------------------
+// The PGS instances: a team of T lanes per env. Lane 0 runs the serial tree
+// work in its own Tree; the team shares the env's Contact. Every lane of a
+// team, a tail team's too, takes the same path through the syncs.
+
+#ifdef __CUDA_ARCH__
+#define TEAM_SYNC(mask) __syncwarp(mask)
+#else
+#define TEAM_SYNC(mask) ((void)(mask))
+#endif
+
+// A lane of a team: its index in the team, the warp lanes of the team
+// (mask), and where they sit. The teams of a block interleave: lane j of
+// team t is warp lane t + j * step, so that the teams' lanes 0, which run
+// the serial work, sit side by side and their local-memory accesses fall
+// into one sector.
+struct Team {
+  int lane;
+  unsigned mask;
+  int first, step;
+};
+
+// The sum of v over the team's lanes, on every lane (off the device a team
+// has one lane).
+template <int T>
+HD inline float team_sum(float v, const Team& tm) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int o = T / 2; o > 0; o >>= 1)
+    v += __shfl_sync(tm.mask, v, tm.first + (tm.lane ^ o) * tm.step);
+#else
+  (void)tm;
+#endif
+  return v;
+}
+
+HD inline float amat(const Contact& S, int i, int j) {
+  return i >= j ? S.A[tri(i, j)] : S.A[tri(j, i)];
+}
+
+// The contact frame of a sole point: n = z, t1 = x, t2 = y on the flat
+// plane; on a plane pl, its normal and the branchless tangent basis of the
+// reference kernel (t1 = n x (x or y axis), normalized; t2 = n x t1).
+HD inline void contact_frame(const float* pl, float fr[3][3]) {
+  if (pl) {
+    plane_normal(pl, fr[0]);
+    const float ux = fabsf(fr[0][0]) < 0.9f ? 1.0f : 0.0f;
+    const float a[3] = {ux, 1.0f - ux, 0.0f};
+    cross3(fr[0], a, fr[1]);
+    const float it1 = rsqrtf(dot3(fr[1], fr[1]) + 1e-12f);
+    for (int i = 0; i < 3; ++i) fr[1][i] *= it1;
+    cross3(fr[0], fr[1], fr[2]);
+  } else {
+    for (int d = 0; d < 3; ++d)
+      for (int i = 0; i < 3; ++i) fr[d][i] = 0.0f;
+    fr[0][2] = fr[1][0] = fr[2][1] = 1.0f;
+  }
+}
+
+// Lane 0's part of the contact setup: each sole point's gap along its
+// plane's normal (fresh every substep) and, when the prep is rebuilt, what
+// the team's row work reads of the tree: the points' offsets from the base
+// point and the joint screws.
+HD void publish_points(const ModelTable& m, const Tree& W, const float* planes, bool prep,
+                       Contact& S) {
+  for (int c = 0; c < m.n_fpts; ++c) {
+    float p[3];
+    point_world(W, m.fpt_body[c], m.fpt_off[c], p);
+    S.phi[c] = plane_gap(planes ? planes + 3 * c : nullptr, p);
+    if (prep)
+      for (int i = 0; i < 3; ++i) S.rel[c][i] = p[i] - W.pos[0][i];
+  }
+  if (prep)
+    for (int k = 0; k < m.nj; ++k)
+      for (int i = 0; i < 3; ++i) {
+        S.w[k][i] = W.w[k][i];
+        S.lin[k][i] = W.lin[k][i];
+      }
+}
+
+// Contact rows and the Delassus operator A = J M^-1 J^T across the team:
+// row r of J on lane r mod T (its point's frame recomputed there), then
+// that lane's column solve M^-1 J_r^T and row r of the packed lower A.
+template <int T>
+HD void team_prepare(const ModelTable& m, const Team& tm, const float* planes, Contact& S) {
+  const int nj = m.nj, nv = nj + 6, R = 3 * m.n_fpts;
+  for (int r = tm.lane; r < R; r += T) {
+    const int c = r / 3, d = r - 3 * c;
+    const unsigned int anc = m.anc[m.fpt_body[c]];
+    const float* rel = S.rel[c];
+    float fr[3][3];
+    contact_frame(planes ? planes + 3 * c : nullptr, fr);
+    const float* e = fr[d];
+    float* row = S.J[r];
+    cross3(rel, e, row);
+    for (int i = 0; i < 3; ++i) row[3 + i] = e[i];
+    for (int k = 0; k < nj; ++k) {
+      float val = 0.0f;
+      if ((anc >> k) & 1u) {
+        float wxr[3];
+        cross3(S.w[k], rel, wxr);
+        val = dot3(e, S.lin[k]) + dot3(e, wxr);
+      }
+      row[6 + k] = val;
+    }
+  }
+  TEAM_SYNC(tm.mask);
+  for (int c = tm.lane; c < R; c += T) {
+    float x[MAX_NV];
+    chol_solve(S.F, nv, S.J[c], x);
+    for (int r = 0; r <= c; ++r) {
+      float s = 0.0f;
+      for (int i = 0; i < nv; ++i) s += S.J[r][i] * x[i];
+      S.A[tri(c, r)] = s;
+    }
+  }
+  TEAM_SYNC(tm.mask);
+}
+
+// One PGS substep of the team's env; `prep` rebuilds the contact rows and
+// Delassus operator, `factor` the mass-matrix factor.
+template <int T, bool WARM>
+HD void team_substep(const ModelTable& m, const Team& tm, float bp[3], float bq[4],
+                     float* qj, float* u, const float* mass, float mu, const float* targets,
+                     const EnvExtras& x, bool factor, bool prep, int iterations, Tree& W,
+                     Contact& S) {
+  const int nj = m.nj, nv = nj + 6, K = m.n_fpts, R = 3 * K;
+  const float dt = m.dt;
+  if (tm.lane == 0) {
+    substep_head(m, bp, bq, qj, u, mass, mu, targets, x, factor, false, W, S.F);
+    for (int i = 0; i < nv; ++i) S.ufree[i] = u[i] + dt * W.tmp[i];
+    publish_points(m, W, x.planes, prep, S);
+  }
+  TEAM_SYNC(tm.mask);
+  if (prep) team_prepare<T>(m, tm, x.planes, S);
+
+  // the free row velocities; the cold sweep starts from zero impulses, the
+  // warm one from the carried S.lam
+  for (int r = tm.lane; r < R; r += T) {
+    float s = 0.0f;
+    for (int i = 0; i < nv; ++i) s += S.J[r][i] * S.ufree[i];
+    S.vf[r] = s;
+    if (!WARM) S.lam[r] = 0.0f;
+  }
+  TEAM_SYNC(tm.mask);
+  for (int it = 0; it < iterations; ++it) {
+    for (int k = 0; k < K; ++k) {
+      const int i0 = 3 * k;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+      for (int c = tm.lane; c < R; c += T) {
+        const float l = S.lam[c];
+        s0 += amat(S, i0, c) * l;
+        s1 += amat(S, i0 + 1, c) * l;
+        s2 += amat(S, i0 + 2, c) * l;
+      }
+      const float vrow[3] = {S.vf[i0] + team_sum<T>(s0, tm),
+                             S.vf[i0 + 1] + team_sum<T>(s1, tm),
+                             S.vf[i0 + 2] + team_sum<T>(s2, tm)};
+      // every tm.lane updates point k from the reduced row velocities
+      const float phi = S.phi[k];
+      const float act = phi < 0.0f ? 1.0f : 0.0f;
+      const float bias = -(m.erp / dt) * fmaxf(-phi - m.slop, 0.0f);
+      const float Ann = amat(S, i0, i0);
+      const float gam = m.cfm * Ann;
+      const float ln = S.lam[i0], lt1_0 = S.lam[i0 + 1], lt2_0 = S.lam[i0 + 2];
+      const float ln_new = fmaxf(0.0f, ln - (vrow[0] + bias + gam * ln) / (Ann + gam)) * act;
+      const float dln = ln_new - ln;
+      const float vt1 = vrow[1] + amat(S, i0 + 1, i0) * dln;
+      const float vt2 = vrow[2] + amat(S, i0 + 2, i0) * dln;
+      const float a11 = amat(S, i0 + 1, i0 + 1) + gam;
+      const float a22 = amat(S, i0 + 2, i0 + 2) + gam;
+      const float a12 = amat(S, i0 + 1, i0 + 2);
+      const float det = a11 * a22 - a12 * a12;
+      const float r1 = vt1 + gam * lt1_0;
+      const float r2 = vt2 + gam * lt2_0;
+      const float lt1 = lt1_0 - (a22 * r1 - a12 * r2) / det;
+      const float lt2 = lt2_0 - (a11 * r2 - a12 * r1) / det;
+      const float tn = sqrtf(lt1 * lt1 + lt2 * lt2 + 1e-12f);
+      const float sc = fminf(1.0f, mu * ln_new / tn) * act;
+      TEAM_SYNC(tm.mask);   // every tm.lane has read point k's impulses ...
+      if (tm.lane == 0) {
+        S.lam[i0] = ln_new;
+        S.lam[i0 + 1] = lt1 * sc;
+        S.lam[i0 + 2] = lt2 * sc;
+      }
+      TEAM_SYNC(tm.mask);   // ... and reads the new ones from point k + 1 on
+    }
+  }
+  // u+ = u_free + M^-1 J^T lam: the impulse map, a column per tm.lane
+  for (int i = tm.lane; i < nv; i += T) {
+    float s = 0.0f;
+    for (int r = 0; r < R; ++r) s += S.J[r][i] * S.lam[r];
+    S.jl[i] = s;
+  }
+  TEAM_SYNC(tm.mask);
+  if (tm.lane == 0) {
+    chol_solve(S.F, nv, S.jl, W.tmp);
+    for (int f = 0; f < m.n_feet; ++f)
+      for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
+    for (int k = 0; k < K; ++k) {   // world force: frame^T lam / dt
+      float* ff = W.foot_f[m.fpt_foot[k]];
+      const float* lam = S.lam + 3 * k;
+      if (x.planes) {
+        for (int i = 0; i < 3; ++i)
+          ff[i] += (S.J[3 * k][3 + i] * lam[0] + S.J[3 * k + 1][3 + i] * lam[1] +
+                    S.J[3 * k + 2][3 + i] * lam[2]) / dt;
+      } else {   // flat frame: n = z, t1 = x, t2 = y
+        ff[0] += lam[1] / dt;
+        ff[1] += lam[2] / dt;
+        ff[2] += lam[0] / dt;
+      }
+    }
+    // integrate: spatial -> conventional correction with the old velocity,
+    // then semi-implicit Euler
+    float corr[3], unew[MAX_NV];
+    cross3(u, u + 3, corr);
+    for (int i = 0; i < nv; ++i) unew[i] = S.ufree[i] + W.tmp[i];
+    for (int i = 0; i < 3; ++i) unew[3 + i] += dt * corr[i];
+    integrate(nj, dt, unew, bp, bq, qj, u);
+  }
+}
+
+// A whole PGS control step for the team's env n; a tail team (n >= N)
+// runs env N - 1 and writes nothing.
+template <int T, bool WARM>
+HD void team_control_step(const ModelTable& m, const Team& tm, int n, int N,
+                          const float* state, const float* masses, const float* friction,
+                          const float* targets, const float* gains, const float* body,
+                          const float* planes, float* state_out, float* diag, int decimation,
+                          bool freeze, bool freeze_prep, int iterations, Tree& W, Contact& S) {
+  const int ne = n < N ? n : N - 1;
+  const EnvExtras x = env_extras(m, ne, gains, body, planes);
+  float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV], mass[MAX_NB], tgt[MAX_NJ];
+  if (tm.lane == 0) load_env(m, ne, N, state, masses, targets, bp, bq, qj, u, mass, tgt);
+  const float mu = friction[ne];
+  const bool frozen_prep = freeze && freeze_prep;
+  if (freeze) {
+    if (tm.lane == 0) {
+      kinematics(m, bp, bq, qj, mass, x.body, W);
+      crba_chol(m, W, S.F);
+      if (frozen_prep) publish_points(m, W, x.planes, true, S);
+    }
+    TEAM_SYNC(tm.mask);
+    if (frozen_prep) team_prepare<T>(m, tm, x.planes, S);
+  }
+  if (WARM)   // the carry starts at zero; the first substep syncs before reading it
+    for (int r = tm.lane; r < 3 * m.n_fpts; r += T) S.lam[r] = 0.0f;
+  for (int s = 0; s < decimation; ++s)
+    team_substep<T, WARM>(m, tm, bp, bq, qj, u, mass, mu, tgt, x, !freeze, !frozen_prep,
+                          iterations, W, S);
+  if (tm.lane == 0 && n < N) store_env(m, n, N, bp, bq, qj, u, W, state_out, diag);
+}
+
+#ifndef __CUDACC__
+
+// The per-env step of a host build (the CPU tests): the PGS instances run
+// the team step with a team of one lane.
+void control_step_env(const ModelTable& m, int n, int N, const float* state,
+                      const float* masses, const float* friction, const float* targets,
+                      const float* gains, const float* body, const float* planes,
+                      float* state_out, float* diag, int decimation, bool pgs, bool warm,
+                      bool freeze, bool freeze_prep, int iterations, Work& W) {
+  if (pgs && warm)
+    team_control_step<1, true>(m, Team{0, 1u, 0, 1}, n, N, state, masses, friction, targets, gains, body,
+                               planes, state_out, diag, decimation, freeze, freeze_prep,
+                               iterations, W.t, W.c);
+  else if (pgs)
+    team_control_step<1, false>(m, Team{0, 1u, 0, 1}, n, N, state, masses, friction, targets, gains, body,
+                                planes, state_out, diag, decimation, freeze, freeze_prep,
+                                iterations, W.t, W.c);
+  else
+    penalty_control_step(m, n, N, state, masses, friction, targets, gains, body, planes,
+                         state_out, diag, decimation, freeze, W.t, W.c.F);
+}
+
+#else
+
+constexpr int TEAM = 4;   // lanes per env on the PGS instances
+#define WARP 32
+// Floats per env in shared memory: a Contact rounded up to an odd multiple
+// of TEAM, so that the teams of a warp reading the same field of their
+// Contacts, lane j word j, hit distinct banks.
+constexpr int kContactWords = static_cast<int>(sizeof(Contact) / 4);
+constexpr int kTeamStride = ((kContactWords + TEAM - 1) / TEAM) % 2
+                                ? ((kContactWords + TEAM - 1) / TEAM) * TEAM
+                                : ((kContactWords + TEAM - 1) / TEAM + 1) * TEAM;
+// Teams per block: a warp's worth, as far as their Contacts and the table
+// fit the 48 KB of static shared memory a block may have (8: 48,924 bytes).
+constexpr int kTeamsFit = (48 * 1024 - static_cast<int>(sizeof(ModelTable))) / (4 * kTeamStride);
+constexpr int kTeams = WARP / TEAM < kTeamsFit ? WARP / TEAM : kTeamsFit;
+
+__device__ inline void load_table(ModelTable& sm, const ModelTable* table) {
   const int words = sizeof(ModelTable) / sizeof(int);
   for (int i = threadIdx.x; i < words; i += blockDim.x)
     reinterpret_cast<int*>(&sm)[i] = reinterpret_cast<const int*>(table)[i];
   __syncthreads();
+}
+
+// PGS: kTeams envs per block, one team each, interleaved in the warp; one
+// kernel per warm-start flag, so that each gets the registers of its own
+// code.
+template <bool WARM>
+__global__ void __launch_bounds__(kTeams * TEAM)
+pgs_team_kernel(const float* __restrict__ state, const float* __restrict__ masses,
+                const float* __restrict__ friction, const float* __restrict__ targets,
+                const float* __restrict__ gains, const float* __restrict__ body,
+                const float* __restrict__ planes, float* __restrict__ state_out,
+                float* __restrict__ diag, int N, const ModelTable* __restrict__ table,
+                int decimation, int freeze, int freeze_prep, int iterations) {
+  __shared__ ModelTable sm;
+  __shared__ float team_mem[kTeams * kTeamStride];
+  load_table(sm, table);
+  const int team = threadIdx.x % kTeams;
+  unsigned mask = 0u;
+  for (int j = 0; j < TEAM; ++j) mask |= 1u << (team + j * kTeams);
+  const Team tm{static_cast<int>(threadIdx.x) / kTeams, mask, team, kTeams};
+  Tree W;
+  team_control_step<TEAM, WARM>(sm, tm, blockIdx.x * kTeams + team, N, state, masses, friction,
+                                targets, gains, body, planes, state_out, diag, decimation,
+                                freeze != 0, freeze_prep != 0, iterations, W,
+                                *reinterpret_cast<Contact*>(team_mem + team * kTeamStride));
+}
+
+// Penalty: one thread per env, 32 envs per block.
+__global__ void __launch_bounds__(WARP)
+penalty_kernel(const float* __restrict__ state, const float* __restrict__ masses,
+               const float* __restrict__ friction, const float* __restrict__ targets,
+               const float* __restrict__ gains, const float* __restrict__ body,
+               const float* __restrict__ planes, float* __restrict__ state_out,
+               float* __restrict__ diag, int N, const ModelTable* __restrict__ table,
+               int decimation, int freeze) {
+  __shared__ ModelTable sm;
+  load_table(sm, table);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  Work W;
-  control_step_impl<PGS, WARM>(sm, n, N, state, masses, friction, targets, gains, body, planes,
-                               state_out, diag, decimation, freeze != 0, freeze_prep != 0,
-                               iterations, W);
+  Tree W;
+  Factor F;
+  penalty_control_step(sm, n, N, state, masses, friction, targets, gains, body, planes,
+                       state_out, diag, decimation, freeze != 0, W, F);
 }
 
 extern "C" int control_step_launch(const float* state, const float* masses,
@@ -718,16 +930,23 @@ extern "C" int control_step_launch(const float* state, const float* masses,
                                    float* state_out, float* diag, int N, const void* table,
                                    int decimation, int pgs, int warm, int freeze,
                                    int freeze_prep, int iterations, void* stream) {
-  const int blocks = (N + THREADS - 1) / THREADS;
-  const auto kernel = pgs ? (warm ? control_step_kernel<true, true>
-                                  : control_step_kernel<true, false>)
-                          : control_step_kernel<false, false>;
-  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      state, masses, friction, targets, gains, body, planes, state_out, diag, N,
-      static_cast<const ModelTable*>(table), decimation, freeze, freeze_prep, iterations);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ModelTable* t = static_cast<const ModelTable*>(table);
+  if (pgs) {
+    const auto kernel = warm ? pgs_team_kernel<true> : pgs_team_kernel<false>;
+    kernel<<<(N + kTeams - 1) / kTeams, kTeams * TEAM, 0, s>>>(
+        state, masses, friction, targets, gains, body, planes, state_out, diag, N, t,
+        decimation, freeze, freeze_prep, iterations);
+  } else {
+    penalty_kernel<<<(N + WARP - 1) / WARP, WARP, 0, s>>>(
+        state, masses, friction, targets, gains, body, planes, state_out, diag, N, t,
+        decimation, freeze);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int model_table_bytes() { return static_cast<int>(sizeof(ModelTable)); }
+
+extern "C" int pgs_team_lanes() { return TEAM; }
 
 #endif

@@ -229,7 +229,9 @@ def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: Contac
 class ControlStepKernel:
     """Wrapper of the control-step kernel for one robot and gain set, on
     the PGS contact model (its warm instance when pgs_params.warm_start),
-    or the penalty model when pgs_params is None.
+    or the penalty model when pgs_params is None. The PGS instances run a
+    team of lanes per env (`design()`), the penalty instance one thread per
+    env.
 
     `launches` counts kernel launches (CUDA calls only). The library is
     built with nvcc at the first CUDA call; `build_info` then holds the
@@ -273,9 +275,18 @@ class ControlStepKernel:
             if lib.model_table_bytes() != ctypes.sizeof(ModelTable):
                 raise RuntimeError("ModelTable layout differs between Python and CUDA: "
                                    f"{ctypes.sizeof(ModelTable)} vs {lib.model_table_bytes()} bytes")
+            lib.pgs_team_lanes.restype = ctypes.c_int
+            lib.pgs_team_lanes.argtypes = []
             self.build_info = info
             self._lib = lib
         return self._lib
+
+    def design(self) -> str:
+        """How the built kernel spreads this instance over the card."""
+        if self.pgs_params is None:
+            return "one thread per env"
+        return (f"team of {self.build().pgs_team_lanes()} lanes per env, "
+                "contact arrays in shared memory")
 
     def plain(self, state_pack, masses, friction, targets, decimation: int,
               freeze: bool = True, freeze_prep: bool = True, gains=None, body=None,
@@ -339,7 +350,7 @@ def launch_bytes(model, N: int, gains: bool = False, body: bool = False,
     """Bytes one launch must move: every input read once (state, masses,
     friction, targets and the optional gains, body and planes), every
     output written once (state, diagnostics). The warm instance moves the
-    same: its carried impulses stay in the thread."""
+    same: its carried impulses stay on the card, in shared memory."""
     n_state = 7 + model.nj + model.nv
     extras = 3 * model.nj * gains + 9 * model.nb * body + 3 * n_points(model) * planes
     return 4 * N * (2 * n_state + model.nb + 1 + model.nj + diag_rows(model) + extras)
@@ -355,7 +366,9 @@ def operations_per_env(model, decimation: int, freeze: bool, freeze_prep: bool,
     The body input only replaces loads; gains add the strength product,
     planes the plane normals, gaps and the tangent bases. The warm instance
     (PGSParams.warm_start) counts the same: its sweeps start from the
-    carried impulses instead of zeros, with the same arithmetic."""
+    carried impulses instead of zeros, with the same arithmetic. It counts
+    the work, not who does it: the PGS kernel's team of lanes splits it,
+    and a frame that three lanes each recompute counts once."""
     nj, nb, nv = model.nj, model.nb, model.nv
     pt_body, _ = model.contact_points()
     K, R = len(pt_body), 3 * len(pt_body)

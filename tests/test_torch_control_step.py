@@ -1,6 +1,6 @@
 """The control step: the port's plain version vs the reference engine, the
 frozen contact prep vs the exact one, and the CUDA kernel's source vs the
-plain version.
+plain version (the PGS instances' team step built with a team of one lane).
 
 Tolerances are the reference package's own kernel-vs-XLA bounds
 (tests/test_physics_kernel.py): |du| < 1e-2, |base_pos| < 1e-5, foot forces
@@ -210,10 +210,10 @@ def host_build(tmp_path_factory):
         "extern \"C\" void host_control_step(const float* s, const float* m, const float* f,\n"
         "    const float* t, const float* g, const float* b, const float* pl, float* so,\n"
         "    float* d, int N, const void* table, int dec, int pgs, int warm, int fr, int fp,\n"
-        "    int it) {\n"
+        "    int it, int tail) {\n"
         "  const ModelTable& mt = *static_cast<const ModelTable*>(table);\n"
         "  Work* W = new Work;\n"
-        "  for (int n = 0; n < N; ++n)\n"
+        "  for (int n = 0; n < N + (pgs ? tail : 0); ++n)\n"
         "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, pgs != 0, warm != 0,\n"
         "                     fr != 0, fp != 0, it, *W);\n"
         "  delete W;\n"
@@ -223,18 +223,23 @@ def host_build(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
     lib.host_control_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 7
     return lib
 
 
 def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=None, body=None,
-               planes=None):
+               planes=None, tail=3):
     """One control step of the host-compiled kernel source, on the contact
     model of the wrapper k (PGS, cold or warm as its parameters say, or
-    penalty without PGS parameters)."""
+    penalty without PGS parameters). The PGS instances' team step (with a
+    team of one lane) also runs `tail` teams beyond the N envs, as a grid's
+    last block does; they must write nothing, and the outputs sit in front
+    of a NaN guard that is checked."""
     n = pack.shape[1]
-    out = torch.empty_like(pack)
-    diag = torch.empty((k.n_diag, n))
+    guard = 64
+    out_buf = torch.full((pack.shape[0] * n + guard,), float("nan"))
+    diag_buf = torch.full((k.n_diag * n + guard,), float("nan"))
+    out, diag = out_buf[:-guard].view(pack.shape[0], n), diag_buf[:-guard].view(k.n_diag, n)
     dec, fr, fp = instance
     ptr = [None if x is None else x.contiguous().data_ptr()
            for x in (pack, masses, friction, targets, gains, body, planes)]
@@ -242,8 +247,14 @@ def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=N
     warm = pgs and k.pgs_params.warm_start
     host_build.host_control_step(*ptr, out.data_ptr(), diag.data_ptr(), n,
                                  ctypes.addressof(k.table), dec, int(pgs), int(warm), int(fr),
-                                 int(fp), SWEEPS if pgs else 0)
+                                 int(fp), SWEEPS if pgs else 0, tail)
+    assert bool(torch.isnan(out_buf[-guard:]).all() and torch.isnan(diag_buf[-guard:]).all())
     return out, unpack_diag(diag, k.model)
+
+
+def _warm_kernel(setup):
+    return ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(),
+                             PGSParams(iterations=SWEEPS, warm_start=True), 0.001)
 
 
 @pytest.mark.parametrize("instance,warm", [((1, False, False), False), ((10, True, True), False),
@@ -254,10 +265,7 @@ def test_kernel_source_matches_plain_on_host(setup, host_build, instance, warm):
     `warm`, the warm-started PGS instance (PGSParams.warm_start) against the
     plain warm control step."""
     assert host_build.host_table_bytes() == ctypes.sizeof(ModelTable)
-    k = setup["kernel"]
-    if warm:
-        k = ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(),
-                              PGSParams(iterations=SWEEPS, warm_start=True), 0.001)
+    k = _warm_kernel(setup) if warm else setup["kernel"]
     pack = setup["pack"].contiguous()
     masses, friction, targets = (x.contiguous() for x in _torch_args(setup))
     out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance)
@@ -441,15 +449,17 @@ def _random_near_ground(tm, seed=7, n=N):
 
 
 @pytest.mark.parametrize("case", ["ramp-exact", "ramp-shipping", "ramp-frozen-factor",
-                                  "random-planes-exact"])
+                                  "random-planes-exact", "ramp-warm"])
 def test_kernel_source_with_extras_matches_plain_on_host(setup, ramp, host_build, case):
     """The host-compiled kernel with gains, body and planes vs the plain
-    version."""
+    version (with `warm`, on the warm-started PGS instance)."""
     k = setup["kernel"]
+    if case.endswith("warm"):
+        k = _warm_kernel(setup)
     masses, friction, targets = _torch_args(setup)
     gains, body = _gains_body(_random_extras(setup["tm"]))
     instance = {"exact": (1, False, False), "shipping": (10, True, True),
-                "factor": (10, True, False)}[case.split("-")[-1]]
+                "factor": (10, True, False), "warm": (10, True, True)}[case.split("-")[-1]]
     if case.startswith("ramp"):
         pack, planes = ramp
     else:
@@ -464,13 +474,17 @@ def test_kernel_source_with_extras_matches_plain_on_host(setup, ramp, host_build
     np.testing.assert_allclose(hd.term_force.numpy(), db.term_force.numpy(), atol=1e-3)
 
 
-@pytest.mark.parametrize("dropped", ["gains", "body", "planes"])
+@pytest.mark.parametrize("dropped", ["gains", "body", "planes", "planes-warm"])
 def test_bounds_catch_a_kernel_that_ignores_an_input(setup, ramp, host_build, dropped):
     """Control for the bounds the extras are held to: the host-compiled
-    kernel with gains, body and planes (shipping instance, on the ramp)
-    against the plain version run without one of them falls outside the
-    bounds, so a kernel that ignored that input would fail them."""
+    kernel with gains, body and planes (shipping instance, on the ramp; with
+    `warm`, the warm-started one) against the plain version run without one
+    of them falls outside the bounds, so a kernel that ignored that input
+    would fail them."""
     k = setup["kernel"]
+    dropped, _, warm = dropped.partition("-")
+    if warm:
+        k = _warm_kernel(setup)
     pack, planes = ramp
     masses, friction, targets = _torch_args(setup)
     gains, body = _gains_body(_random_extras(setup["tm"]))

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA control-step kernel (without and
 with its gains, body and planes inputs, on PGS, warm-started PGS and
-penalty contact), the
+penalty contact; the PGS instances' team kernel also at a count of envs
+that leaves tail teams), the
 heightfield sampler and the batched Cholesky kernels against their plain
 PyTorch versions. They import nothing of JAX, so that they run
 on a machine with the card:
@@ -292,3 +293,59 @@ def test_cuda_warm_kernel_matches_plain(cuda_device, instance):
     assert float((a[19:] - c[19:]).abs().max()) >= 1e-2 \
         or float((a[0:3] - c[0:3]).abs().max()) >= 1e-5 \
         or float((da.foot_forces - dc.foot_forces).abs().max()) >= 0.01 * weight
+
+
+TEAM_CASES = {
+    "shipping": ((10, True, True), False, False),
+    "exact": ((1, False, False), False, False),
+    "unfrozen-prep": ((10, True, False), False, False),
+    "warm": ((10, True, True), True, False),
+    "extras": ((10, True, True), False, True),
+    "warm-extras": ((10, True, True), True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 4093])
+@pytest.mark.parametrize("case", list(TEAM_CASES))
+def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
+    """The PGS instances' team kernel vs the plain version, at a count of
+    envs that fills its blocks and one that leaves tail teams in the last
+    block (4093): shipping, exact, unfrozen prep, warm, and with random
+    gains and bodies on a ramp. A tail team that wrote its env N + j would
+    overwrite env j's next output row; two launches give the same bits."""
+    instance, warm, extras = TEAM_CASES[case]
+    env, _, _ = registry.make_env("humanoid_ppo", device=cuda_device)
+    m, p = env.model, env.physics
+    params = p.pgs_params._replace(warm_start=warm)
+    k = ControlStepKernel(m, *p.gains, p.contact_params, params, p.dt)
+    assert k.design().startswith("team of")
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=cuda_device).contiguous()
+
+    kw = {}
+    if extras:
+        kw["planes"] = t(np.tile([0.0, 0.05, -0.05], (n, n_points(m))))
+        kp, kd = p.gains[:2]
+        kw["gains"] = t(np.concatenate([kp * rng.uniform(0.8, 1.2, (n, m.nj)),
+                                        kd * rng.uniform(0.8, 1.2, (n, m.nj)),
+                                        np.repeat(rng.uniform(0.8, 1.2, (n, 1)), m.nj, axis=1)],
+                                       axis=1))
+        com = np.tile(m.com, (n, 1, 1))
+        com[:, 0] += rng.uniform(-0.03, 0.03, (n, 3))
+        kw["body"] = pack_body(t(com), t(np.tile(m.inertia, (n, 1, 1, 1)) * 1.1)).contiguous()
+    inputs = _loaded_feet(k, m, cuda_device, kw.get("planes"), N=n)
+    a, da = k(*inputs, *instance, **kw)
+    a2, da2 = k(*inputs, *instance, **kw)
+    b, db = k.plain(*inputs, *instance, **kw)
+    torch.cuda.synchronize()
+    assert k.launches == 2
+    assert torch.equal(a, a2) and torch.equal(da.foot_forces, da2.foot_forces)
+    weight = m.total_mass * 9.81
+    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
+    assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
+    for x, y in zip(da, db):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
