@@ -23,10 +23,14 @@ and the engine path (`sim.use_pallas_substep=False`) for 1 iteration each
 of `humanoid_ppo`, `humanoid_ppo_terrain` and `humanoid_ppo_penalty` with
 an unfrozen factor, through registry.make_env(env_cfg=...) and
 make_alg_runner. Each path's kernel launches per iteration are checked.
-A determinism phase runs the control step's PGS
-instances several times on the same inputs and requires identical outputs
-(a missing sync between the lanes of the PGS kernel's teams shows as
-run-to-run differences). Then it times the kernels. Each phase
+A determinism phase runs the control step's PGS and penalty instances
+several times on the same inputs and requires identical outputs (a missing
+sync between the lanes of a team shows as run-to-run differences). Then it
+times the kernels: `ms` is the device time per launch of a CUDA graph of
+the wrapper's calls, `eager_ms` the wrapper called back to back (its host
+cost per call, ~20 µs, sets the latter for a kernel of a few
+microseconds). The build and time lines carry each kernel's design and
+ptxas report (registers, stack frame, spills, shared memory). Each phase
 prints one JSON line before the next begins; a phase that fails raises and
 the script exits non-zero. The last three lines are the card's name and
 power limit, the kernel table, and {"ok": true, "device": ...}.
@@ -94,6 +98,26 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device time per call of fn: `reps` calls captured in one CUDA graph
+    and replayed, so that the wrapper's host cost per call (its checks, the
+    ctypes call), which sets cuda_ms for a kernel of a few microseconds, is
+    left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 3) / reps
 
 
 def bound(ops, nbytes):
@@ -425,7 +449,7 @@ def main(argv=None):
     import numpy as np
 
     from humanoid_tpu_torch.ops import linalg
-    from humanoid_tpu_torch.ops.build import build_all
+    from humanoid_tpu_torch.ops.build import build_all, ptxas_summary
     from humanoid_tpu_torch.ops.physics_kernel import (ControlStepKernel, launch_bytes,
                                                       operations_per_env)
     from humanoid_tpu_torch.ops.terrain_sampler import (TerrainSampler, sample_bytes,
@@ -445,9 +469,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build_all(sources)
     wall = time.perf_counter() - t0
+    ptxas = {}
     for src in sources:
+        ptxas.update(ptxas_summary(built[src].ptxas))
         emit("build", source=f"humanoid_tpu_torch/csrc/{src}", nvcc_s=built[src].seconds,
-             all_builds_wall_s=wall, ptxas=list(built[src].ptxas))
+             all_builds_wall_s=wall, kernels=ptxas_summary(built[src].ptxas),
+             ptxas=list(built[src].ptxas))
 
     # ---- settled robots on the flat plane: the inputs of phases 2 and 3 ----
     env_cfg, _ = registry.get_cfgs("humanoid_ppo")
@@ -570,10 +597,20 @@ def main(argv=None):
                                                  True, True, gains=gains, body=body,
                                                  planes=planes),
         }
+        # settled, some sole corners sit at round-off of zero gap (Queue C of
+        # ROADMAP.md): held to the median bound only, as the PGS instances
+        settled_runs = {
+            "flat_settled_shipping": compare(pprobe, model, settled, 10, True, True),
+            "all_ramp_settled_shipping": compare(pprobe, model, with_offsets(on_ramp), 10, True,
+                                                 True, gains=gains, body=body, planes=planes),
+        }
         emit("penalty_vs_plain", envs=N, ramp_gradient=RAMP, design=pprobe.design(),
-             tolerance=tolerance, **penalty)
+             tolerance=tolerance, **penalty, **settled_runs)
         for name, r in penalty.items():
             check_within(f"penalty {name}", r)
+        for name, r in settled_runs.items():
+            if not r["finite"] or r["median_du"] >= 1e-3:
+                raise AssertionError(f"penalty {name}: median per-env |du| too large: {r}")
         control = compare(pprobe, model, with_offsets(ramp_pressed), 10, True, True,
                           drop="planes", gains=gains, body=body, planes=planes)
         emit("penalty_controls", envs=N, plain_without_planes=control)
@@ -602,9 +639,9 @@ def main(argv=None):
                 f"warm: the bounds do not tell the cold plain version: {control}")
         results["warm"] = warm["shipping"]
 
-    # ---- 3f. determinism: the PGS instances REPEATS times on the same
-    # inputs give the same bits (a missing sync between a team's lanes
-    # shows as differences from run to run) ----
+    # ---- 3f. determinism: the PGS and penalty instances REPEATS times on
+    # the same inputs give the same bits (a missing sync between a team's
+    # lanes shows as differences from run to run) ----
     if "determinism" in phases:
         runs = {
             "shipping": (probe, settled, (10, True, True), {}),
@@ -612,6 +649,9 @@ def main(argv=None):
             "warm": (wprobe, settled, (10, True, True), {}),
             "extras": (probe, with_offsets(on_ramp), (10, True, True),
                        {"gains": gains, "body": body, "planes": planes}),
+            "penalty": (pprobe, settled, (10, True, True), {}),
+            "penalty_extras_unfrozen": (pprobe, with_offsets(on_ramp), (10, False, False),
+                                        {"gains": gains, "body": body, "planes": planes}),
         }
         same = {}
         for name, (k, inputs, args, kw) in runs.items():
@@ -715,14 +755,17 @@ def main(argv=None):
 
             for _ in range(3):
                 run_kernel()
-            ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
+            eager_ms = cuda_ms(run_kernel, TIMED_LAUNCHES)
+            ms = graph_ms(run_kernel, TIMED_LAUNCHES)
             run_plain()
             plain_ms = cuda_ms(run_plain, 3)
             flags = {f: f in kw for f in ("gains", "body", "planes")}
             pgs = k.pgs_params is not None
             ops = operations_per_env(model, args[0], args[1], args[2],
                                      k.pgs_params.iterations if pgs else 0, pgs=pgs, **flags) * N
-            timing[name] = {"ms": ms, "plain_ms": plain_ms, "design": k.design(),
+            timing[name] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                            "design": k.design(),
+                            "ptxas": ptxas.get(k.kernel_name()),
                             **bound(ops, launch_bytes(model, N, **flags))}
             emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
         # the warm and the shipping instance in turns (shipping, warm, warm,
@@ -742,12 +785,14 @@ def main(argv=None):
 
         for _ in range(3):
             run_sampler()
-        s_ms = cuda_ms(run_sampler, TIMED_SAMPLES)
+        s_eager_ms = cuda_ms(run_sampler, TIMED_SAMPLES)
+        s_ms = graph_ms(run_sampler, TIMED_SAMPLES)
         run_sampler_plain()
         s_plain_ms = cuda_ms(run_sampler_plain, 10)
         n_scan, n_con = scan_xy.shape[0] * scan_xy.shape[1], con_xy.shape[0] * con_xy.shape[1]
         cells = touched_cells(sprobe.raster, sprobe.hs, sprobe.border, scan_xy, con_xy)
-        timing["sampler"] = {"ms": s_ms, "plain_ms": s_plain_ms, "raster_cells_read": cells,
+        timing["sampler"] = {"ms": s_ms, "eager_ms": s_eager_ms, "plain_ms": s_plain_ms,
+                             "raster_cells_read": cells,
                              **bound(SAMPLER_OPS_PER_SCAN * n_scan
                                      + SAMPLER_OPS_PER_CONTACT * n_con,
                                      sample_bytes(n_scan, n_con, cells))}
@@ -776,8 +821,10 @@ def main(argv=None):
         for name, (run_k, run_p, run_lib, lib_name) in calls.items():
             for fn in (run_k, run_p, run_lib):
                 fn()
-            timing[name] = {"ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
+            timing[name] = {"ms": graph_ms(run_k, TIMED_LINALG),
+                            "eager_ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
                             "library_ms": cuda_ms(run_lib, TIMED_LINALG), "library": lib_name,
+                            "design": lprobe.design(name), "ptxas": ptxas.get(f"{name}_kernel"),
                             **bound(linalg.operations_per_env(name, n) * N,
                                     linalg.bytes_per_env(name, n) * N)}
             emit(f"{name}_time", launches_timed=TIMED_LINALG, n=n, **timing[name])
@@ -800,7 +847,8 @@ def kernel_table(results, timing, launches, sampler_err, linalg_err, sweeps, n, 
     """The kernels line: one row per kernel, the control step's instances
     inside its row."""
     def row(name, result, t, **more):
-        return {"max_abs_err": result, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        return {"max_abs_err": result, "ms": t["ms"], "eager_ms": t["eager_ms"],
+                "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), "instance": name, **more}
 
@@ -814,7 +862,7 @@ def kernel_table(results, timing, launches, sampler_err, linalg_err, sweeps, n, 
          "launches": sum(by_path(f"{name}_kernel").values()),
          "launches_by_path": by_path(f"{name}_kernel"),
          **row(f"n={n}, {N} envs", linalg_err[key], timing[name],
-               library=timing[name]["library"])}
+               library=timing[name]["library"], design=timing[name]["design"])}
         for name, key, line in (("chol_factor", "factor", 144), ("chol_apply", "apply", 165),
                                 ("chol_solve", "solve", 108))]
     return {"kernels": [

@@ -72,13 +72,23 @@
 // lanes and eight teams per warp (eight lanes and four teams ran slower,
 // PERF.md), and the teams interleave, so that their lanes 0 share a sector.
 //
-// Design of the penalty instance: one thread per env, its Tree and factor
-// in local memory (it has no row work to spread).
+// Design of the penalty instance: a team of PENALTY_TEAM lanes per env, the
+// teams of a warp interleaved as above, 8 envs per block. It has no contact
+// rows; nearly all of its work is tree work, so that is what the team
+// spreads: the PD torques and joint screws per joint, the spatial
+// inertias and bias forces per body, the contact points (their generalized
+// forces and the foot forces summed over the lanes by shuffles, in a fixed
+// order), the CRBA's joint rows, the factor's rows column by column, and
+// the two triangular solves by columns with shuffles. Only the chain
+// recursions stay serial, one branch of the base per lane (Chains: the two
+// legs at once, every lane stepping through the same slots, so that the
+// branches do not wait on each other by divergence). The env's Tree,
+// factor and state sit in shared memory, a PenaltyEnv per env.
 //
-// The team step is __host__ __device__ code in which, outside the device
-// pass, the shuffles and syncs compile to nothing: at TEAM = 1 a host
-// compiler builds it and the CPU tests hold it against the plain version.
-// The wrapper never runs it on the host.
+// The team steps are __host__ __device__ code in which, outside the device
+// pass, the shuffles and syncs compile to nothing: with a team of one lane
+// a host compiler builds them and the CPU tests hold them against the
+// plain version. The wrapper never runs them on the host.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -395,11 +405,11 @@ HD inline float plane_gap(const float* pl, const float p[3]) {
 
 // Penalty force f on world point p of body b (spring-damper normal force,
 // regularized Coulomb friction) against the plane pl, or the plane z = 0
-// with a vertical force when pl is null; adds its generalized force to
-// W.rhs and returns the normal force.
-HD float penalty_point(const ModelTable& m, Tree& W, int b, const float p[3], const float* pl,
-                       float mu, float f[3]) {
-  float rel[3], wr[3], vl[3], nm[3];
+// with a vertical force when pl is null, and its moment
+// nm = (p - base point) x f; returns the normal force.
+HD float point_force(const ModelTable& m, const Tree& W, int b, const float p[3], const float* pl,
+                     float mu, float f[3], float nm[3]) {
+  float rel[3], wr[3], vl[3];
   for (int i = 0; i < 3; ++i) rel[i] = p[i] - W.pos[0][i];
   cross3(W.v[b], rel, wr);
   for (int i = 0; i < 3; ++i) vl[i] = W.v[b][3 + i] + wr[i];
@@ -424,6 +434,15 @@ HD float penalty_point(const ModelTable& m, Tree& W, int b, const float p[3], co
     f[0] = -scale * vl[0]; f[1] = -scale * vl[1]; f[2] = fn;
   }
   cross3(rel, f, nm);
+  return fn;
+}
+
+// point_force's force f on world point p of body b; adds its generalized
+// force to W.rhs and returns the normal force.
+HD float penalty_point(const ModelTable& m, Tree& W, int b, const float p[3], const float* pl,
+                       float mu, float f[3]) {
+  float nm[3];
+  const float fn = point_force(m, W, b, p, pl, mu, f, nm);
   for (int i = 0; i < 3; ++i) { W.rhs[i] += nm[i]; W.rhs[3 + i] += f[i]; }
   const unsigned int anc = m.anc[b];
   for (int k = 0; k < m.nj; ++k)
@@ -507,12 +526,11 @@ HD void store_env(const ModelTable& m, int n, int N, const float bp[3], const fl
 }
 
 // The serial head of a substep: PD torque, kinematics, the velocity/bias
-// recursion, the factor (with `factor`), the penalty forces (the sole
-// corners with `feet`, then the termination spheres) and the free
-// acceleration W.tmp = M^-1 (tau + penalty forces - C).
+// recursion, the factor (with `factor`), the termination spheres' penalty
+// forces and the free acceleration W.tmp = M^-1 (tau + penalty forces - C).
 HD void substep_head(const ModelTable& m, const float bp[3], const float bq[4], const float* qj,
                      const float* u, const float* mass, float mu, const float* targets,
-                     const EnvExtras& x, bool factor, bool feet, Tree& W, Factor& F) {
+                     const EnvExtras& x, bool factor, Tree& W, Factor& F) {
   const int nj = m.nj, nv = nj + 6, K = m.n_fpts;
   for (int k = 0; k < nj; ++k) {
     float t;
@@ -526,16 +544,6 @@ HD void substep_head(const ModelTable& m, const float bp[3], const float bq[4], 
   vel_bias(m, u, W);
   if (factor) crba_chol(m, W, F);
   for (int i = 0; i < nv; ++i) W.rhs[i] = 0.0f;
-  if (feet) {
-    for (int f = 0; f < m.n_feet; ++f)
-      for (int i = 0; i < 3; ++i) W.foot_f[f][i] = 0.0f;
-    for (int c = 0; c < K; ++c) {
-      float p[3], f[3];
-      point_world(W, m.fpt_body[c], m.fpt_off[c], p);
-      penalty_point(m, W, m.fpt_body[c], p, x.planes ? x.planes + 3 * c : nullptr, mu, f);
-      for (int i = 0; i < 3; ++i) W.foot_f[m.fpt_foot[c]][i] += f[i];
-    }
-  }
   for (int s = 0; s < m.n_term; ++s) {
     float p[3], f[3];
     point_world(W, m.term_body[s], m.term_off[s], p);
@@ -546,41 +554,6 @@ HD void substep_head(const ModelTable& m, const float bp[3], const float bq[4], 
   for (int k = 0; k < nj; ++k) W.rhs[6 + k] += W.tau[k];
   for (int i = 0; i < nv; ++i) W.rhs[i] -= W.C[i];
   chol_solve(F, nv, W.rhs, W.tmp);
-}
-
-// ---------------------------------------------------------------------------
-// The penalty instance: one thread per env.
-
-HD void penalty_substep(const ModelTable& m, float bp[3], float bq[4], float* qj, float* u,
-                        const float* mass, float mu, const float* targets, const EnvExtras& x,
-                        bool factor, Tree& W, Factor& F) {
-  const int nj = m.nj, nv = nj + 6;
-  substep_head(m, bp, bq, qj, u, mass, mu, targets, x, factor, true, W, F);
-  // spatial -> conventional acceleration of the base origin with the old
-  // velocity, then semi-implicit Euler
-  float corr[3], unew[MAX_NV];
-  cross3(u, u + 3, corr);
-  for (int i = 0; i < 3; ++i) W.tmp[3 + i] += corr[i];
-  for (int i = 0; i < nv; ++i) unew[i] = u[i] + m.dt * W.tmp[i];
-  integrate(nj, m.dt, unew, bp, bq, qj, u);
-}
-
-HD void penalty_control_step(const ModelTable& m, int n, int N, const float* state,
-                             const float* masses, const float* friction, const float* targets,
-                             const float* gains, const float* body, const float* planes,
-                             float* state_out, float* diag, int decimation, bool freeze,
-                             Tree& W, Factor& F) {
-  const EnvExtras x = env_extras(m, n, gains, body, planes);
-  float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV], mass[MAX_NB], tgt[MAX_NJ];
-  load_env(m, n, N, state, masses, targets, bp, bq, qj, u, mass, tgt);
-  const float mu = friction[n];
-  if (freeze) {
-    kinematics(m, bp, bq, qj, mass, x.body, W);
-    crba_chol(m, W, F);
-  }
-  for (int s = 0; s < decimation; ++s)
-    penalty_substep(m, bp, bq, qj, u, mass, mu, tgt, x, !freeze, W, F);
-  store_env(m, n, N, bp, bq, qj, u, W, state_out, diag);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,7 +685,7 @@ HD void team_substep(const ModelTable& m, const Team& tm, float bp[3], float bq[
   const int nj = m.nj, nv = nj + 6, K = m.n_fpts, R = 3 * K;
   const float dt = m.dt;
   if (tm.lane == 0) {
-    substep_head(m, bp, bq, qj, u, mass, mu, targets, x, factor, false, W, S.F);
+    substep_head(m, bp, bq, qj, u, mass, mu, targets, x, factor, W, S.F);
     for (int i = 0; i < nv; ++i) S.ufree[i] = u[i] + dt * W.tmp[i];
     publish_points(m, W, x.planes, prep, S);
   }
@@ -836,10 +809,483 @@ HD void team_control_step(const ModelTable& m, const Team& tm, int n, int N,
   if (tm.lane == 0 && n < N) store_env(m, n, N, bp, bq, qj, u, W, state_out, diag);
 }
 
+// ---------------------------------------------------------------------------
+// The penalty instance: a team of T lanes per env, its Tree, factor and
+// state in one PenaltyEnv in shared memory. The work of a substep is
+// spread over the team by joint, body, contact point and row of the
+// factor; only the chain recursions (the forward pose and velocity chains,
+// the backward composite and bias sums) stay serial, one branch of the
+// base per lane (`Chains`). Every lane of a team, a tail team's too,
+// takes the same path through the syncs and shuffles.
+
+struct PenaltyEnv {
+  Tree t;
+  Factor f;
+  float bp[3], bq[4], qj[MAX_NJ], u[MAX_NV];   // the env's state
+};
+
+// The chain recursions' schedule for a team of T lanes: the branches of
+// the base (the subtrees of its children) go to the lanes in turn, and lane
+// l runs joints joint[l][0 .. len[l]) in ascending order. Every lane steps
+// through the same `steps` slots, so that the lanes run their chains side
+// by side (one leg each on a biped), not one after another.
+template <int T>
+struct Chains {
+  int steps;
+  unsigned char len[T];
+  unsigned char joint[T][MAX_NJ];
+};
+
+template <int T>
+HD inline void make_chains(const ModelTable& m, Chains<T>& ch) {
+  int lane_of[MAX_NB], roots = 0;
+  for (int l = 0; l < T; ++l) ch.len[l] = 0;
+  for (int b = 1; b <= m.nj; ++b) {
+    const int p = m.parent[b];
+    const int l = lane_of[b] = p == 0 ? roots++ % T : lane_of[p];
+    ch.joint[l][ch.len[l]++] = b - 1;
+  }
+  ch.steps = 0;
+  for (int l = 0; l < T; ++l) ch.steps = ch.len[l] > ch.steps ? ch.len[l] : ch.steps;
+}
+
+// v of the team's lane `src`, on every lane (off the device a team has one
+// lane).
+HD inline float team_from(float v, int src, const Team& tm) {
+#ifdef __CUDA_ARCH__
+  return __shfl_sync(tm.mask, v, tm.first + src * tm.step);
+#else
+  (void)src;
+  (void)tm;
+  return v;
+#endif
+}
+
+// State row r of the pack [pos 3, quat 4, qj nj, u nv].
+HD inline float& state_row(PenaltyEnv& P, int nj, int r) {
+  return r < 3 ? P.bp[r] : r < 7 ? P.bq[r - 3] : r < 7 + nj ? P.qj[r - 7] : P.u[r - 7 - nj];
+}
+
+// Diagnostics row r (store_env's order).
+HD inline float diag_row(const ModelTable& m, const Tree& W, int r) {
+  const int nb = m.nj + 1;
+  if (r < 3 * nb) return W.pos[r / 3][r % 3];
+  r -= 3 * nb;
+  if (r < 4 * nb) return W.quat[r / 4][r % 4];
+  r -= 4 * nb;
+  if (r < 3 * nb) return W.v[r / 3][r % 3];
+  r -= 3 * nb;
+  if (r < 3 * m.n_feet) return W.foot_f[r / 3][r % 3];
+  r -= 3 * m.n_feet;
+  if (r < m.n_term) return W.term_f[r];
+  return W.tau[r - m.n_term];
+}
+
+// Kinematics across the team: the pose chains per branch (a lane keeps the
+// last body it posed in registers, the parent of its next joint on a
+// chain), then the joint screws per joint and the spatial inertias per body
+// (kinematics' arithmetic).
+template <int T>
+HD void team_kinematics(const ModelTable& m, const Team& tm, const Chains<T>& ch,
+                        const float* mass, const float* body, PenaltyEnv& P) {
+  const int nj = m.nj;
+  Tree& W = P.t;
+  if (tm.lane == 0) {
+    for (int i = 0; i < 3; ++i) W.pos[0][i] = P.bp[i];
+    for (int i = 0; i < 4; ++i) W.quat[0][i] = P.bq[i];
+  }
+  TEAM_SYNC(tm.mask);
+  float cq[4], cp[3];
+  int last = -1;
+  for (int s = 0; s < ch.steps; ++s) {
+    if (s >= ch.len[tm.lane]) continue;
+    const int k = ch.joint[tm.lane][s];
+    const int p = m.parent[k + 1];
+    if (p != last) {
+      for (int i = 0; i < 4; ++i) cq[i] = W.quat[p][i];
+      for (int i = 0; i < 3; ++i) cp[i] = W.pos[p][i];
+    }
+    float qf[4], qjn[4], off[3], q[4];
+    qmul(cq, m.joint_quat[k], qf);
+    const float half = 0.5f * P.qj[k];
+    float c, sh;
+    sincosf(half, &sh, &c);
+    qjn[0] = c;
+    for (int i = 0; i < 3; ++i) qjn[1 + i] = m.joint_axis[k][i] * sh;
+    qmul(qf, qjn, q);
+    qrot(cq, m.joint_pos[k], off);
+    for (int i = 0; i < 3; ++i) W.pos[k + 1][i] = cp[i] = cp[i] + off[i];
+    for (int i = 0; i < 4; ++i) W.quat[k + 1][i] = cq[i] = q[i];
+    last = k + 1;
+  }
+  TEAM_SYNC(tm.mask);
+  const float* A = W.pos[0];
+  for (int k = tm.lane; k < nj; k += T) {
+    float anchor[3];
+    qrot(W.quat[k + 1], m.joint_axis[k], W.w[k]);
+    for (int i = 0; i < 3; ++i) anchor[i] = W.pos[k + 1][i] - A[i];
+    cross3(anchor, W.w[k], W.lin[k]);
+  }
+  for (int b = tm.lane; b <= nj; b += T) {
+    float R[3][3], r[3], RI[3][3], Iw[3][3];
+    qmat(W.quat[b], R);
+    const float* c = body ? body + 3 * b : m.com[b];
+    const float* i6 = body ? body + 3 * (nj + 1) + 6 * b : m.inertia[b];
+    const float Ib[3][3] = {{i6[0], i6[1], i6[2]}, {i6[1], i6[3], i6[4]}, {i6[2], i6[4], i6[5]}};
+    for (int i = 0; i < 3; ++i)
+      r[i] = W.pos[b][i] + R[i][0] * c[0] + R[i][1] * c[1] + R[i][2] * c[2] - A[i];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        RI[i][j] = R[i][0] * Ib[0][j] + R[i][1] * Ib[1][j] + R[i][2] * Ib[2][j];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        Iw[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] + RI[i][2] * R[j][2];
+    const float mb = mass[b];
+    const float rr = dot3(r, r);
+    float* I = W.isp[b];
+    I[0] = mb;
+    for (int i = 0; i < 3; ++i) I[1 + i] = mb * r[i];
+    I[4] = Iw[0][0] + mb * (rr - r[0] * r[0]);
+    I[5] = Iw[0][1] - mb * r[0] * r[1];
+    I[6] = Iw[0][2] - mb * r[0] * r[2];
+    I[7] = Iw[1][1] + mb * (rr - r[1] * r[1]);
+    I[8] = Iw[1][2] - mb * r[1] * r[2];
+    I[9] = Iw[2][2] + mb * (rr - r[2] * r[2]);
+  }
+  TEAM_SYNC(tm.mask);
+}
+
+// x[b] (width `w` floats each, b = 0..nj) summed into the parents, leaves
+// first, in vel_bias' order: each branch on its lane, then the branches'
+// roots into the base on lane 0.
+template <int T>
+HD void team_to_parents(const ModelTable& m, const Team& tm, const Chains<T>& ch, float* x,
+                        int w) {
+  for (int s = ch.steps - 1; s >= 0; --s) {
+    if (s >= ch.len[tm.lane]) continue;
+    const int b = ch.joint[tm.lane][s] + 1, p = m.parent[b];
+    if (p != 0)
+      for (int i = 0; i < w; ++i) x[p * w + i] += x[b * w + i];
+  }
+  TEAM_SYNC(tm.mask);
+  if (tm.lane == 0)
+    for (int b = m.nj; b > 0; --b)
+      if (m.parent[b] == 0)
+        for (int i = 0; i < w; ++i) x[i] += x[b * w + i];
+  TEAM_SYNC(tm.mask);
+}
+
+// Body velocities and the bias forces C across the team (vel_bias'
+// arithmetic): the velocity chains per branch, the bias force per body,
+// the sums into the parents, C per joint.
+template <int T>
+HD void team_vel_bias(const ModelTable& m, const Team& tm, const Chains<T>& ch, PenaltyEnv& P) {
+  const int nj = m.nj;
+  Tree& W = P.t;
+  const float* u = P.u;
+  if (tm.lane == 0) {
+    for (int i = 0; i < 6; ++i) { W.v[0][i] = u[i]; W.a[0][i] = 0.0f; }
+    W.a[0][5] = m.gravity;
+  }
+  TEAM_SYNC(tm.mask);
+  float cv[6], ca[6];   // the last body of the lane's chain, as in team_kinematics
+  int last = -1;
+  for (int s = 0; s < ch.steps; ++s) {
+    if (s >= ch.len[tm.lane]) continue;
+    const int k = ch.joint[tm.lane][s];
+    const int p = m.parent[k + 1];
+    if (p != last)
+      for (int i = 0; i < 6; ++i) { cv[i] = W.v[p][i]; ca[i] = W.a[p][i]; }
+    const float qd = u[6 + k];
+    float vJ[6], aw[3], t1[3], t2[3];
+    for (int i = 0; i < 3; ++i) { vJ[i] = W.w[k][i] * qd; vJ[3 + i] = W.lin[k][i] * qd; }
+    for (int i = 0; i < 6; ++i) cv[i] += vJ[i];
+    cross3(cv, vJ, aw);
+    cross3(cv + 3, vJ, t1);
+    cross3(cv, vJ + 3, t2);
+    for (int i = 0; i < 3; ++i) {
+      ca[i] += aw[i];
+      ca[3 + i] = ca[3 + i] + t1[i] + t2[i];
+    }
+    for (int i = 0; i < 6; ++i) { W.v[k + 1][i] = cv[i]; W.a[k + 1][i] = ca[i]; }
+    last = k + 1;
+  }
+  TEAM_SYNC(tm.mask);
+  for (int b = tm.lane; b <= nj; b += T) {
+    float Iv[6], Ia[6], c1[3], c2[3], c3[3];
+    inertia_apply(W.isp[b], W.v[b], Iv);
+    inertia_apply(W.isp[b], W.a[b], Ia);
+    cross3(W.v[b], Iv, c1);
+    cross3(W.v[b] + 3, Iv + 3, c2);
+    cross3(W.v[b], Iv + 3, c3);
+    for (int i = 0; i < 3; ++i) {
+      W.g[b][i] = Ia[i] + c1[i] + c2[i];
+      W.g[b][3 + i] = Ia[3 + i] + c3[i];
+    }
+  }
+  TEAM_SYNC(tm.mask);
+  team_to_parents<T>(m, tm, ch, &W.g[0][0], 6);
+  if (tm.lane == 0)
+    for (int i = 0; i < 6; ++i) W.C[i] = W.g[0][i];
+  for (int k = tm.lane; k < nj; k += T)
+    W.C[6 + k] = dot3(W.w[k], W.g[k + 1]) + dot3(W.lin[k], W.g[k + 1] + 3) +
+                 m.damping[k] * u[6 + k];
+  TEAM_SYNC(tm.mask);
+}
+
+// The CRBA mass matrix into P.f.L across the team (crba_chol's arithmetic:
+// the composite inertias, the base block on lane 0, the joint rows per
+// joint), then the left-looking Cholesky factor by columns, lane l owning
+// rows l, l + T, ...; the pivot of column j comes from row j's lane.
+template <int T>
+HD void team_crba_chol(const ModelTable& m, const Team& tm, const Chains<T>& ch, PenaltyEnv& P) {
+  const int nj = m.nj, nv = nj + 6;
+  Tree& W = P.t;
+  Factor& F = P.f;
+  for (int b = tm.lane; b <= nj; b += T)
+    for (int i = 0; i < 10; ++i) W.ic[b][i] = W.isp[b][i];
+  TEAM_SYNC(tm.mask);
+  team_to_parents<T>(m, tm, ch, &W.ic[0][0], 10);
+  if (tm.lane == 0) {
+    const float* I0 = W.ic[0];
+    const float* h = I0 + 1;
+    const float Ibar[3][3] = {{I0[4], I0[5], I0[6]}, {I0[5], I0[7], I0[8]}, {I0[6], I0[8], I0[9]}};
+    const float hx[3][3] = {{0.0f, -h[2], h[1]}, {h[2], 0.0f, -h[0]}, {-h[1], h[0], 0.0f}};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j <= i; ++j) {
+        F.L[tri(i, j)] = Ibar[i][j];
+        F.L[tri(3 + i, 3 + j)] = i == j ? I0[0] : 0.0f;
+      }
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) F.L[tri(3 + i, j)] = hx[j][i];   // (h~)^T
+  }
+  for (int k = tm.lane; k < nj; k += T) {
+    float S[6], f[6];
+    for (int i = 0; i < 3; ++i) { S[i] = W.w[k][i]; S[3 + i] = W.lin[k][i]; }
+    inertia_apply(W.ic[k + 1], S, f);
+    const int i = 6 + k;
+    for (int j = 0; j < 6; ++j) F.L[tri(i, j)] = f[j];
+    const unsigned int anc = m.anc[k + 1];
+    for (int b = 0; b <= k; ++b) {
+      float val = 0.0f;
+      if ((anc >> b) & 1u)
+        val = dot3(W.w[b], f) + dot3(W.lin[b], f + 3);
+      F.L[tri(i, 6 + b)] = val;
+    }
+    F.L[tri(i, i)] += m.armature[k];
+  }
+  TEAM_SYNC(tm.mask);
+  constexpr int R = (MAX_NV + T - 1) / T;
+  for (int j = 0; j < nv; ++j) {
+    float t[R], tj = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tm.lane + r * T;
+      t[r] = 0.0f;
+      if (i >= j && i < nv) {
+        float s = F.L[tri(i, j)];
+        for (int k = 0; k < j; ++k) s -= F.L[tri(i, k)] * F.L[tri(j, k)];
+        t[r] = s;
+        if (i == j) tj = s;
+      }
+    }
+    const float s = team_from(tj, j % T, tm);
+    const float iv = rsqrtf(s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tm.lane + r * T;
+      if (i == j) {
+        F.invd[j] = iv;
+        F.L[tri(j, j)] = s * iv;
+      } else if (i > j && i < nv) {
+        F.L[tri(i, j)] = t[r] * iv;
+      }
+    }
+    TEAM_SYNC(tm.mask);   // column j is written before column j + 1 reads row j + 1
+  }
+}
+
+// The penalty forces of every contact point across the team (point c on
+// lane c mod T), their generalized forces and the foot forces reduced over
+// the lanes with shuffles (a fixed order: the same bits every run), then
+// the right-hand side tau + forces - C of the rows the lane owns into y.
+template <int T>
+HD void team_points(const ModelTable& m, const Team& tm, float mu, const float* planes,
+                    PenaltyEnv& P, float* y) {
+  const int nj = m.nj, nv = nj + 6, K = m.n_fpts;
+  Tree& W = P.t;
+  float acc[MAX_NV], ff[MAX_FEET][3];
+#pragma unroll
+  for (int i = 0; i < MAX_NV; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < MAX_FEET; ++q)
+    for (int i = 0; i < 3; ++i) ff[q][i] = 0.0f;
+  for (int c = tm.lane; c < K + m.n_term; c += T) {
+    const bool foot = c < K;
+    const int s = c - K;
+    const int b = foot ? m.fpt_body[c] : m.term_body[s];
+    float p[3], f[3], nm[3];
+    point_world(W, b, foot ? m.fpt_off[c] : m.term_off[s], p);
+    if (!foot) p[2] -= m.term_rad[s];
+    const float fn = point_force(m, W, b, p, planes ? planes + 3 * c : nullptr, mu, f, nm);
+    for (int i = 0; i < 3; ++i) { acc[i] += nm[i]; acc[3 + i] += f[i]; }
+    const unsigned int anc = m.anc[b];
+#pragma unroll
+    for (int k = 0; k < MAX_NJ; ++k)
+      if (k < nj && ((anc >> k) & 1u)) acc[6 + k] += dot3(nm, W.w[k]) + dot3(f, W.lin[k]);
+    if (foot) {
+#pragma unroll
+      for (int q = 0; q < MAX_FEET; ++q)
+        if (q == m.fpt_foot[c])
+          for (int i = 0; i < 3; ++i) ff[q][i] += f[i];
+    } else {
+      W.term_f[s] = fn;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MAX_NV; ++i)
+    if (i < nv) acc[i] = team_sum<T>(acc[i], tm);
+#pragma unroll
+  for (int q = 0; q < MAX_FEET; ++q)
+    for (int i = 0; i < 3; ++i) ff[q][i] = team_sum<T>(ff[q][i], tm);
+  if (tm.lane == 0)
+    for (int q = 0; q < m.n_feet; ++q)
+      for (int i = 0; i < 3; ++i) W.foot_f[q][i] = ff[q][i];
+  constexpr int R = (MAX_NV + T - 1) / T;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tm.lane + r * T;
+    float v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < MAX_NV; ++q)
+      if (q == i) v = acc[q];
+    if (i < nv) y[r] = (i >= 6 ? v + W.tau[i - 6] : v) - W.C[i];
+  }
+}
+
+// y = M^-1 y with the factor P.f by columns across the team (lane l holds
+// rows l, l + T, ... of y): x_j from row j's lane by shuffle, then the rows
+// below it; back by rows of L, then the rows above it. The loops over j
+// are unrolled, so that row j's lane, its slot and the offsets into the
+// packed L are constants.
+template <int T>
+HD void team_chol_solve(const Factor& F, int nv, const Team& tm, float* y) {
+  constexpr int R = (MAX_NV + T - 1) / T;
+  int row[R];   // the offset of the lane's row i in the packed L
+#pragma unroll
+  for (int r = 0; r < R; ++r) row[r] = tri(tm.lane + r * T, 0);
+#pragma unroll
+  for (int j = 0; j < MAX_NV; ++j) {
+    if (j >= nv) break;
+    const float xj = team_from(tm.lane == j % T ? y[j / T] * F.invd[j] : 0.0f, j % T, tm);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tm.lane + r * T;
+      if (i == j) y[r] = xj;
+      else if (i > j && i < nv) y[r] -= F.L[row[r] + j] * xj;
+    }
+  }
+#pragma unroll
+  for (int j = MAX_NV - 1; j >= 0; --j) {
+    if (j >= nv) continue;
+    const float xj = team_from(tm.lane == j % T ? y[j / T] * F.invd[j] : 0.0f, j % T, tm);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tm.lane + r * T;
+      if (i == j) y[r] = xj;
+      else if (i < j) y[r] -= F.L[tri(j, 0) + i] * xj;
+    }
+  }
+}
+
+// Semi-implicit Euler across the team (integrate's arithmetic): the
+// spatial -> conventional correction with the old velocity, the new
+// velocity and joint angles of the lane's rows, then the base on lane 0.
+template <int T>
+HD void team_integrate(const ModelTable& m, const Team& tm, const float* udot, PenaltyEnv& P) {
+  const int nv = m.nj + 6;
+  const float dt = m.dt;
+  float corr[3];
+  cross3(P.u, P.u + 3, corr);
+  TEAM_SYNC(tm.mask);   // every lane has read the old base velocity
+  constexpr int R = (MAX_NV + T - 1) / T;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tm.lane + r * T;
+    if (i >= nv) continue;
+    float a = udot[r];
+    if (i >= 3 && i < 6) a += corr[i - 3];
+    const float un = P.u[i] + dt * a;
+    P.u[i] = un;
+    if (i >= 6) P.qj[i - 6] += dt * un;
+  }
+  TEAM_SYNC(tm.mask);
+  if (tm.lane == 0) {
+    const float* un = P.u;
+    for (int i = 0; i < 3; ++i) P.bp[i] += dt * un[3 + i];
+    float om[3] = {un[0] * dt, un[1] * dt, un[2] * dt};
+    const float ang = sqrtf(dot3(om, om));
+    const float half = 0.5f * ang;
+    const bool small = ang < 1e-8f;
+    const float kfac = small ? 0.5f : sinf(half) / ang;
+    const float dq[4] = {cosf(half), om[0] * kfac, om[1] * kfac, om[2] * kfac};
+    float qn[4];
+    qmul(dq, P.bq, qn);
+    const float nrm = rsqrtf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3] + 1e-12f);
+    for (int i = 0; i < 4; ++i) P.bq[i] = qn[i] * nrm;
+  }
+}
+
+// A whole penalty control step for the team's env n; a tail team (n >= N)
+// runs env N - 1 and writes nothing.
+template <int T>
+HD void penalty_team_step(const ModelTable& m, const Team& tm, const Chains<T>& ch, int n, int N,
+                          const float* state, const float* masses, const float* friction,
+                          const float* targets, const float* gains, const float* body,
+                          const float* planes, float* state_out, float* diag, int decimation,
+                          bool freeze, PenaltyEnv& P) {
+  const int nj = m.nj, nv = nj + 6, rows = 7 + nj + nv;
+  const int ne = n < N ? n : N - 1;
+  const EnvExtras x = env_extras(m, ne, gains, body, planes);
+  const float* mass = masses + static_cast<long long>(ne) * (nj + 1);
+  const float* tgt = targets + static_cast<long long>(ne) * nj;
+  const float mu = friction[ne];
+  for (int r = tm.lane; r < rows; r += T) state_row(P, nj, r) = state[r * N + ne];
+  TEAM_SYNC(tm.mask);
+  if (freeze) {
+    team_kinematics<T>(m, tm, ch, mass, x.body, P);
+    team_crba_chol<T>(m, tm, ch, P);
+  }
+  for (int s = 0; s < decimation; ++s) {
+    for (int k = tm.lane; k < nj; k += T) {   // PD torque (substep_head's law)
+      float t;
+      if (x.gains)
+        t = (x.gains[k] * (tgt[k] - P.qj[k]) - x.gains[nj + k] * P.u[6 + k]) *
+            x.gains[2 * nj + k];
+      else
+        t = m.kp[k] * (tgt[k] - P.qj[k]) - m.kd[k] * P.u[6 + k];
+      P.t.tau[k] = fminf(fmaxf(t, -m.tau_lim[k]), m.tau_lim[k]);
+    }
+    team_kinematics<T>(m, tm, ch, mass, x.body, P);
+    team_vel_bias<T>(m, tm, ch, P);
+    if (!freeze) team_crba_chol<T>(m, tm, ch, P);
+    float y[(MAX_NV + T - 1) / T];
+    team_points<T>(m, tm, mu, x.planes, P, y);
+    team_chol_solve<T>(P.f, nv, tm, y);
+    team_integrate<T>(m, tm, y, P);
+  }
+  TEAM_SYNC(tm.mask);
+  if (n < N) {
+    for (int r = tm.lane; r < rows; r += T) state_out[r * N + n] = state_row(P, nj, r);
+    const int drows = 10 * (nj + 1) + 3 * m.n_feet + m.n_term + nj;
+    for (int r = tm.lane; r < drows; r += T) diag[r * N + n] = diag_row(m, P.t, r);
+  }
+}
+
 #ifndef __CUDACC__
 
-// The per-env step of a host build (the CPU tests): the PGS instances run
-// the team step with a team of one lane.
+// The per-env step of a host build (the CPU tests): every instance runs its
+// team step with a team of one lane.
 void control_step_env(const ModelTable& m, int n, int N, const float* state,
                       const float* masses, const float* friction, const float* targets,
                       const float* gains, const float* body, const float* planes,
@@ -853,9 +1299,14 @@ void control_step_env(const ModelTable& m, int n, int N, const float* state,
     team_control_step<1, false>(m, Team{0, 1u, 0, 1}, n, N, state, masses, friction, targets, gains, body,
                                 planes, state_out, diag, decimation, freeze, freeze_prep,
                                 iterations, W.t, W.c);
-  else
-    penalty_control_step(m, n, N, state, masses, friction, targets, gains, body, planes,
-                         state_out, diag, decimation, freeze, W.t, W.c.F);
+  else {
+    Chains<1> ch;
+    make_chains(m, ch);
+    PenaltyEnv* P = new PenaltyEnv;
+    penalty_team_step<1>(m, Team{0, 1u, 0, 1}, ch, n, N, state, masses, friction, targets,
+                         gains, body, planes, state_out, diag, decimation, freeze, *P);
+    delete P;
+  }
 }
 
 #else
@@ -906,22 +1357,47 @@ pgs_team_kernel(const float* __restrict__ state, const float* __restrict__ masse
                                 *reinterpret_cast<Contact*>(team_mem + team * kTeamStride));
 }
 
-// Penalty: one thread per env, 32 envs per block.
-__global__ void __launch_bounds__(WARP)
-penalty_kernel(const float* __restrict__ state, const float* __restrict__ masses,
-               const float* __restrict__ friction, const float* __restrict__ targets,
-               const float* __restrict__ gains, const float* __restrict__ body,
-               const float* __restrict__ planes, float* __restrict__ state_out,
-               float* __restrict__ diag, int N, const ModelTable* __restrict__ table,
-               int decimation, int freeze) {
+constexpr int PENALTY_TEAM = 16;   // lanes per env on the penalty instance
+// Floats per env in shared memory: a PenaltyEnv rounded up to an odd count,
+// so that the teams of a warp reading the same field hit distinct banks.
+constexpr int kPenaltyWords = static_cast<int>(sizeof(PenaltyEnv) / 4);
+constexpr int kPenaltyStride = kPenaltyWords % 2 ? kPenaltyWords : kPenaltyWords + 1;
+// Teams per block: 8, as far as their PenaltyEnvs, the table and the chain
+// schedule fit the 48 KB of static shared memory a block may have, so that
+// a block shares its copy of the table among as many envs as it can and
+// 4096 envs take one wave; the teams of a warp interleave.
+constexpr int kPenaltyFit = (48 * 1024 - static_cast<int>(sizeof(ModelTable)) -
+                             static_cast<int>(sizeof(Chains<PENALTY_TEAM>))) /
+                            (4 * kPenaltyStride);
+constexpr int kPenaltyTeams = 8 < kPenaltyFit ? 8 : kPenaltyFit;
+constexpr int kPenaltyWarpTeams =
+    WARP / PENALTY_TEAM < kPenaltyTeams ? WARP / PENALTY_TEAM : kPenaltyTeams;
+static_assert(kPenaltyTeams % kPenaltyWarpTeams == 0, "a team must lie in one warp");
+
+// Penalty: kPenaltyTeams envs per block, one team each, the teams of a warp
+// interleaved as the PGS kernel's; each env's PenaltyEnv in shared memory.
+__global__ void __launch_bounds__(kPenaltyTeams * PENALTY_TEAM)
+penalty_team_kernel(const float* __restrict__ state, const float* __restrict__ masses,
+                    const float* __restrict__ friction, const float* __restrict__ targets,
+                    const float* __restrict__ gains, const float* __restrict__ body,
+                    const float* __restrict__ planes, float* __restrict__ state_out,
+                    float* __restrict__ diag, int N, const ModelTable* __restrict__ table,
+                    int decimation, int freeze) {
   __shared__ ModelTable sm;
+  __shared__ Chains<PENALTY_TEAM> ch;
+  __shared__ float team_mem[kPenaltyTeams * kPenaltyStride];
   load_table(sm, table);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  Tree W;
-  Factor F;
-  penalty_control_step(sm, n, N, state, masses, friction, targets, gains, body, planes,
-                       state_out, diag, decimation, freeze != 0, W, F);
+  if (threadIdx.x == 0) make_chains(sm, ch);
+  __syncthreads();
+  const int lane = threadIdx.x % WARP, first = lane % kPenaltyWarpTeams;
+  const int team = threadIdx.x / WARP * kPenaltyWarpTeams + first;
+  unsigned mask = 0u;
+  for (int j = 0; j < PENALTY_TEAM; ++j) mask |= 1u << (first + j * kPenaltyWarpTeams);
+  const Team tm{lane / kPenaltyWarpTeams, mask, first, kPenaltyWarpTeams};
+  penalty_team_step<PENALTY_TEAM>(
+      sm, tm, ch, blockIdx.x * kPenaltyTeams + team, N, state, masses, friction, targets,
+      gains, body, planes, state_out, diag, decimation, freeze != 0,
+      *reinterpret_cast<PenaltyEnv*>(team_mem + team * kPenaltyStride));
 }
 
 extern "C" int control_step_launch(const float* state, const float* masses,
@@ -938,7 +1414,8 @@ extern "C" int control_step_launch(const float* state, const float* masses,
         state, masses, friction, targets, gains, body, planes, state_out, diag, N, t,
         decimation, freeze, freeze_prep, iterations);
   } else {
-    penalty_kernel<<<(N + WARP - 1) / WARP, WARP, 0, s>>>(
+    penalty_team_kernel<<<(N + kPenaltyTeams - 1) / kPenaltyTeams, kPenaltyTeams * PENALTY_TEAM, 0,
+                          s>>>(
         state, masses, friction, targets, gains, body, planes, state_out, diag, N, t,
         decimation, freeze);
   }
@@ -948,5 +1425,7 @@ extern "C" int control_step_launch(const float* state, const float* masses,
 extern "C" int model_table_bytes() { return static_cast<int>(sizeof(ModelTable)); }
 
 extern "C" int pgs_team_lanes() { return TEAM; }
+
+extern "C" int penalty_team_lanes() { return PENALTY_TEAM; }
 
 #endif

@@ -11,6 +11,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +30,43 @@ class BuiltLibrary:
     lib: ctypes.CDLL
     path: str
     seconds: float          # nvcc wall time; 0.0 when the library was already built
-    ptxas: tuple            # nvcc's report, -Xptxas -v included (registers, stack, spills)
+    ptxas: tuple            # nvcc's report, -Xptxas -v included (registers, stack, spills),
+                            # kept beside the library for a later load
+
+
+def ptxas_summary(lines) -> dict:
+    """Each kernel's registers, stack frame, spills and static shared memory
+    from nvcc's `-Xptxas -v` report, by kernel name (a template kernel's
+    bool argument as <true> or <false>)."""
+    out, entry, props = {}, None, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(_Z(\d+)(\w+))'", line)
+        if m:
+            k = int(m.group(2))
+            name, rest = m.group(3)[:k], m.group(3)[k:]
+            if rest.startswith("ILb"):
+                name += "<true>" if rest.startswith("ILb1") else "<false>"
+            entry = (m.group(1), name)
+            out[name] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == entry[0]:
+            out[entry[1]].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry[1]].update(registers=int(m.group(1)),
+                                 smem=int(smem.group(1)) if smem else 0)
+            entry = None
+    return out
 
 
 def find_nvcc() -> str:
@@ -69,9 +106,14 @@ def build_all(sources) -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n"
                                    + "\n".join(log))
-            os.replace(tmp, out)
             ptxas = tuple(line.strip() for line in log if line.strip())
+            with open(f"{out}.ptxas", "w") as f:
+                f.write("\n".join(ptxas))
+            os.replace(tmp, out)
         out = _target(source)[1]
+        if not ptxas and os.path.exists(f"{out}.ptxas"):
+            with open(f"{out}.ptxas") as f:
+                ptxas = tuple(f.read().splitlines())
         built[source] = BuiltLibrary(lib=ctypes.CDLL(out), path=out, seconds=seconds,
                                      ptxas=ptxas)
     return built

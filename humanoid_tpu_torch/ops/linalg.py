@@ -83,6 +83,8 @@ def build():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.linalg_max_n.restype = ctypes.c_int
+        lib.chol_solve_envs_per_block.restype = ctypes.c_int
+        lib.chol_solve_envs_per_block.argtypes = []
         if lib.linalg_max_n() != MAX_N:
             raise RuntimeError(f"linalg.cu takes n <= {lib.linalg_max_n()}, the wrapper {MAX_N}")
         build_info = info
@@ -130,6 +132,14 @@ class CholeskyKernels:
 
     def __init__(self):
         self.launches = {"chol_factor": 0, "chol_apply": 0, "chol_solve": 0}
+
+    @staticmethod
+    def design(kernel: str) -> str:
+        """How the built kernel spreads its work over the card."""
+        if kernel == "chol_solve":
+            return (f"a warp per env, {build().chol_solve_envs_per_block()} envs per block, "
+                    "matrices staged in shared memory")
+        return "one thread per env"
 
     def _run(self, kernel, mat, vec=None):
         out = _launch(kernel, mat, vec)

@@ -229,9 +229,8 @@ def control_step_plain(rt: RobotTensors, kp, kd, tau_lim, contact_params: Contac
 class ControlStepKernel:
     """Wrapper of the control-step kernel for one robot and gain set, on
     the PGS contact model (its warm instance when pgs_params.warm_start),
-    or the penalty model when pgs_params is None. The PGS instances run a
-    team of lanes per env (`design()`), the penalty instance one thread per
-    env.
+    or the penalty model when pgs_params is None. Each instance runs a team
+    of lanes per env (`design()`).
 
     `launches` counts kernel launches (CUDA calls only). The library is
     built with nvcc at the first CUDA call; `build_info` then holds the
@@ -275,8 +274,9 @@ class ControlStepKernel:
             if lib.model_table_bytes() != ctypes.sizeof(ModelTable):
                 raise RuntimeError("ModelTable layout differs between Python and CUDA: "
                                    f"{ctypes.sizeof(ModelTable)} vs {lib.model_table_bytes()} bytes")
-            lib.pgs_team_lanes.restype = ctypes.c_int
-            lib.pgs_team_lanes.argtypes = []
+            for name in ("pgs_team_lanes", "penalty_team_lanes"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = []
             self.build_info = info
             self._lib = lib
         return self._lib
@@ -284,9 +284,16 @@ class ControlStepKernel:
     def design(self) -> str:
         """How the built kernel spreads this instance over the card."""
         if self.pgs_params is None:
-            return "one thread per env"
+            return (f"team of {self.build().penalty_team_lanes()} lanes per env, "
+                    "tree, factor and state in shared memory")
         return (f"team of {self.build().pgs_team_lanes()} lanes per env, "
                 "contact arrays in shared memory")
+
+    def kernel_name(self) -> str:
+        """The `__global__` this instance launches, as ptxas names it."""
+        if self.pgs_params is None:
+            return "penalty_team_kernel"
+        return f"pgs_team_kernel<{'true' if self.pgs_params.warm_start else 'false'}>"
 
     def plain(self, state_pack, masses, friction, targets, decimation: int,
               freeze: bool = True, freeze_prep: bool = True, gains=None, body=None,

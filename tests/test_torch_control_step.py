@@ -213,7 +213,7 @@ def host_build(tmp_path_factory):
         "    int it, int tail) {\n"
         "  const ModelTable& mt = *static_cast<const ModelTable*>(table);\n"
         "  Work* W = new Work;\n"
-        "  for (int n = 0; n < N + (pgs ? tail : 0); ++n)\n"
+        "  for (int n = 0; n < N + tail; ++n)\n"
         "    control_step_env(mt, n, N, s, m, f, t, g, b, pl, so, d, dec, pgs != 0, warm != 0,\n"
         "                     fr != 0, fp != 0, it, *W);\n"
         "  delete W;\n"
@@ -231,10 +231,10 @@ def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=N
                planes=None, tail=3):
     """One control step of the host-compiled kernel source, on the contact
     model of the wrapper k (PGS, cold or warm as its parameters say, or
-    penalty without PGS parameters). The PGS instances' team step (with a
-    team of one lane) also runs `tail` teams beyond the N envs, as a grid's
-    last block does; they must write nothing, and the outputs sit in front
-    of a NaN guard that is checked."""
+    penalty without PGS parameters). The team step (with a team of one
+    lane) also runs `tail` teams beyond the N envs, as a grid's last block
+    does; they must write nothing, and the outputs sit in front of a NaN
+    guard that is checked."""
     n = pack.shape[1]
     guard = 64
     out_buf = torch.full((pack.shape[0] * n + guard,), float("nan"))
@@ -603,12 +603,14 @@ def test_penalty_planes_on_a_ramp_match_reference_heightfield(setup, penalty_ker
 
 
 @pytest.mark.parametrize("case", ["flat-exact", "flat-shipping", "flat-unfrozen",
-                                  "ramp-shipping", "ramp-exact", "random-planes-exact"])
+                                  "ramp-shipping", "ramp-exact", "random-planes-exact",
+                                  "ramp-unfrozen", "random-planes-unfrozen"])
 def test_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp, host_build,
                                                      case):
-    """The host-compiled kernel's penalty instance vs control_step_batch:
-    on the flat plane without inputs, and with gains, body and planes on
-    the ramp and on random per-point planes."""
+    """The host-compiled kernel's penalty instance (its team step with one
+    lane, tail teams behind the NaN guard) vs control_step_batch: on the
+    flat plane without inputs, and with gains, body and planes on the ramp
+    and on random per-point planes, the factor frozen or not."""
     k = penalty_kernel
     masses, friction, targets = _torch_args(setup)
     instance = {"exact": (1, False, False), "shipping": (10, True, True),

@@ -1,7 +1,7 @@
 """Card-only tests of the port: the CUDA control-step kernel (without and
 with its gains, body and planes inputs, on PGS, warm-started PGS and
-penalty contact; the PGS instances' team kernel also at a count of envs
-that leaves tail teams), the
+penalty contact; the team kernels also at a count of envs that leaves
+tail teams), the
 heightfield sampler and the batched Cholesky kernels against their plain
 PyTorch versions. They import nothing of JAX, so that they run
 on a machine with the card:
@@ -191,6 +191,29 @@ def test_cuda_linalg_matches_plain(cuda_device, n, cond):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("count,n", [(4093, 18), (4095, 24), (4098, 24), (3, 6)])
+def test_cuda_solve_tail_blocks_match_plain(cuda_device, count, n):
+    """B5 (a warp per env, several envs per block) at counts of envs that
+    leave a part-filled last block, and at n = 24, the widest it takes; the
+    upper triangle of M is never read (NaN there changes nothing); a
+    second launch gives the same bits."""
+    M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(n, count, 1e3, count + n))
+    k = linalg.CholeskyKernels()
+    assert k.design("chol_solve").startswith("a warp per env")
+    xs = k.solve_spd_batch(M, b)
+    upper_nan = M.clone()
+    rows, cols = torch.triu_indices(n, n, 1, device=cuda_device)
+    upper_nan[:, rows, cols] = float("nan")
+    xs2 = k.solve_spd_batch(upper_nan, b)
+    xsp = linalg.chol_solve_unrolled(M, b)
+    torch.cuda.synchronize()
+    assert k.launches["chol_solve"] == 2
+    tol = max(1e-5, float(np.finfo(np.float32).eps) * 1e3)
+    assert float((xs - xsp).abs().amax(1).div(xsp.abs().amax(1)).max()) < tol
+    assert torch.equal(xs, xs2)
+
+
+@pytest.mark.cuda
 def test_cuda_linalg_gives_nan_on_non_spd_and_checks_inputs(cuda_device):
     M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(18, 64, 1e2, 1))
     M[1, 7, 7] = -1.0
@@ -295,13 +318,17 @@ def test_cuda_warm_kernel_matches_plain(cuda_device, instance):
         or float((da.foot_forces - dc.foot_forces).abs().max()) >= 0.01 * weight
 
 
-TEAM_CASES = {
-    "shipping": ((10, True, True), False, False),
-    "exact": ((1, False, False), False, False),
-    "unfrozen-prep": ((10, True, False), False, False),
-    "warm": ((10, True, True), True, False),
-    "extras": ((10, True, True), False, True),
-    "warm-extras": ((10, True, True), True, True),
+TEAM_CASES = {   # instance, contact model (cold or warm PGS, penalty), gains/body/planes
+    "shipping": ((10, True, True), "cold", False),
+    "exact": ((1, False, False), "cold", False),
+    "unfrozen-prep": ((10, True, False), "cold", False),
+    "warm": ((10, True, True), "warm", False),
+    "extras": ((10, True, True), "cold", True),
+    "warm-extras": ((10, True, True), "warm", True),
+    "penalty": ((10, True, True), "penalty", False),
+    "penalty-unfrozen": ((10, False, False), "penalty", False),
+    "penalty-extras": ((10, True, True), "penalty", True),
+    "penalty-extras-exact": ((1, False, False), "penalty", True),
 }
 
 
@@ -309,15 +336,17 @@ TEAM_CASES = {
 @pytest.mark.parametrize("n", [256, 4093])
 @pytest.mark.parametrize("case", list(TEAM_CASES))
 def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
-    """The PGS instances' team kernel vs the plain version, at a count of
-    envs that fills its blocks and one that leaves tail teams in the last
-    block (4093): shipping, exact, unfrozen prep, warm, and with random
-    gains and bodies on a ramp. A tail team that wrote its env N + j would
-    overwrite env j's next output row; two launches give the same bits."""
-    instance, warm, extras = TEAM_CASES[case]
+    """The team kernels (PGS cold and warm, penalty) vs the plain version,
+    at a count of envs that fills their blocks and one that leaves tail
+    teams in the last block (4093): shipping, exact, unfrozen prep or
+    factor, and with random gains and bodies on a ramp. A tail team that
+    wrote its env N + j would overwrite env j's next output row; two
+    launches give the same bits."""
+    instance, model_kind, extras = TEAM_CASES[case]
     env, _, _ = registry.make_env("humanoid_ppo", device=cuda_device)
     m, p = env.model, env.physics
-    params = p.pgs_params._replace(warm_start=warm)
+    params = None if model_kind == "penalty" else p.pgs_params._replace(
+        warm_start=model_kind == "warm")
     k = ControlStepKernel(m, *p.gains, p.contact_params, params, p.dt)
     assert k.design().startswith("team of")
     rng = np.random.default_rng(3)
@@ -336,7 +365,10 @@ def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
         com = np.tile(m.com, (n, 1, 1))
         com[:, 0] += rng.uniform(-0.03, 0.03, (n, 3))
         kw["body"] = pack_body(t(com), t(np.tile(m.inertia, (n, 1, 1, 1)) * 1.1)).contiguous()
-    inputs = _loaded_feet(k, m, cuda_device, kw.get("planes"), N=n)
+    # penalty: settled on the PGS contact, as the other penalty tests
+    settle_with = k if params is not None else ControlStepKernel(m, *p.gains, p.contact_params,
+                                                                 p.pgs_params, p.dt)
+    inputs = _loaded_feet(settle_with, m, cuda_device, kw.get("planes"), N=n)
     a, da = k(*inputs, *instance, **kw)
     a2, da2 = k(*inputs, *instance, **kw)
     b, db = k.plain(*inputs, *instance, **kw)

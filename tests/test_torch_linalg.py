@@ -198,7 +198,7 @@ def _host(lib, name, *ins, out_shape):
     return out
 
 
-@pytest.mark.parametrize("n,cond", [(18, 1e2), (18, 1e5), (24, 1e3), (1, 1.0)])
+@pytest.mark.parametrize("n,cond", [(18, 1e2), (18, 1e5), (24, 1e3), (1, 1.0), (6, 10.0)])
 def test_kernel_source_matches_plain_on_host(host_linalg, n, cond):
     M, b = spd(n, 11 + n, cond), rhs(n, 11 + n)
     L = _host(host_linalg, "host_factor", M, out_shape=(N, n, n))
@@ -215,16 +215,21 @@ def test_kernel_source_matches_plain_on_host(host_linalg, n, cond):
                                atol=tol(cond) * float(xsp.abs().max()))
 
 
-def test_kernel_source_gives_nan_on_host_for_non_spd(host_linalg):
-    n = 18
+@pytest.mark.parametrize("n", [6, 18, 24])
+def test_kernel_source_gives_nan_on_host_for_non_spd(host_linalg, n):
+    """NaN on a negative or zero pivot; the solve (B5's lane code, with one
+    lane on the host) never reads the upper triangle of M."""
     M = spd(n, 5, 1e2, count=3)
-    M[1, 7, 7] = -1.0
+    M[1, min(7, n - 1), min(7, n - 1)] = -1.0
     M[2] = 0.0
     b = rhs(n, 5, count=3)
     x = _host(host_linalg, "host_solve", M, b, out_shape=(3, n))
     L = _host(host_linalg, "host_factor", M, out_shape=(3, n, n))
     assert bool(torch.isfinite(x[0]).all()) and bool(torch.isfinite(L[0]).all())
     assert all(bool(torch.isnan(x[i]).any()) and bool(torch.isnan(L[i]).any()) for i in (1, 2))
+    upper_nan = M.copy()
+    upper_nan[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    assert torch.equal(_host(host_linalg, "host_solve", upper_nan, b, out_shape=(3, n))[0], x[0])
 
 
 def test_kernel_source_on_mass_matrices(host_linalg, tmp_path):
