@@ -8,7 +8,9 @@ Builds the control-step kernel, the heightfield sampler and the batched
 Cholesky kernels from humanoid_tpu_torch/csrc with nvcc (one nvcc per
 source, started together), holds each kernel against its plain PyTorch
 version at 4096 envs (first the Cholesky factor, apply and solve on the
-settled robots' mass matrices and on random SPD matrices; then the control
+settled robots' mass matrices and on random SPD matrices, each also run
+again, with NaN above the diagonal and with non-SPD envs, for the same
+bits and NaN where the input has no factor; then the control
 step on PGS contact without and with its gains, body and planes inputs, on
 penalty contact, whose plain version runs the plain Cholesky, and on
 warm-started PGS; the sampler on the full humanoid_ppo_terrain world;
@@ -74,6 +76,7 @@ TOL_FACTOR, TOL_SOLVE_FLOOR, TOL_SOLVE_PER_COND = 1e-4, 1e-5, 1.1920929e-07
 # plain version's 7.0e-7): eps cond would allow ~5e-4
 TOL_SETTLED = 4e-6
 MAX_COND = 1e5
+NON_SPD_EVERY = 7                # compare_linalg's envs with a negative pivot
 TIMED_LINALG = 200
 RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands on
 # the reference's round-4 "warm6" solver: frozen prep and 6 warm-started sweeps
@@ -384,7 +387,11 @@ def compare_linalg(chol, M, b, fixed=None):
     their plain versions on the same inputs, per env, relative to each env's
     largest entry; the solve also against the float64 one. The bounds:
     TOL_FACTOR and max(TOL_SOLVE_FLOOR, TOL_SOLVE_PER_COND cond), or
-    `fixed` for all four."""
+    `fixed` for all four. Then each kernel on the same inputs again: a
+    second launch, NaN above the diagonal of M or L (never read), and a
+    negative pivot in every NON_SPD_EVERY-th env (NaN there from that pivot
+    on, the factor's upper triangle still zeros, the other envs unchanged);
+    each must give the same bits as the first launch outside the NaN envs."""
     import torch
 
     from humanoid_tpu_torch.ops import linalg
@@ -408,6 +415,28 @@ def compare_linalg(chol, M, b, fixed=None):
     over = (rel["factor"] >= tol_factor) | (rel["apply"] >= tol) | (rel["solve"] >= tol) \
         | (vs64["solve_kernel"] >= tol)
     finite = all(bool(torch.isfinite(y).all()) for y in (L, x, xs, Lp, xp, xsp))
+    n = M.shape[-1]
+    rows, cols = torch.triu_indices(n, n, 1, device=M.device)
+    M_nan, L_nan = M.clone(), Lp.clone()
+    M_nan[:, rows, cols] = L_nan[:, rows, cols] = float("nan")
+    bad = M.clone()
+    bad[::NON_SPD_EVERY, 2, 2] = -1.0
+    L_bad = chol.factor_spd_batch(bad)
+    runs = {   # kernel: (first launch, [the same inputs again, NaN above the diagonal], non-SPD)
+        "factor": (L, [chol.factor_spd_batch(M), chol.factor_spd_batch(M_nan)], L_bad),
+        "apply": (x, [chol.apply_spd_batch(Lp, b), chol.apply_spd_batch(L_nan, b)],
+                  chol.apply_spd_batch(linalg.chol_factor_unrolled(bad), b)),
+        "solve": (xs, [chol.solve_spd_batch(M, b), chol.solve_spd_batch(M_nan, b)],
+                  chol.solve_spd_batch(bad, b))}
+    torch.cuda.synchronize()
+    bits = lambda y: y.view(torch.int32)  # noqa: E731
+    hit = torch.zeros(M.shape[0], dtype=torch.bool, device=M.device)
+    hit[::NON_SPD_EVERY] = True
+    nan_env = {k: torch.isnan(v[2].reshape(M.shape[0], -1)).any(1) for k, v in runs.items()}
+    same_bits = {k: {"repeat": torch.equal(bits(v[0]), bits(v[1][0])),
+                     "upper_nan": torch.equal(bits(v[0]), bits(v[1][1])),
+                     "non_spd_elsewhere": torch.equal(bits(v[0][~hit]), bits(v[2][~hit]))}
+                 for k, v in runs.items()}
     return {
         "cond_range": [cond.min().item(), cond.max().item()],
         "tolerance": {"factor": tol_factor, "solve": fixed if fixed is not None else
@@ -420,8 +449,10 @@ def compare_linalg(chol, M, b, fixed=None):
         "max_rel_err_vs_float64_over_tol": {k: (v / tol).max().item() for k, v in vs64.items()},
         "max_abs_err": {"factor": (L - Lp).abs().max().item(), "apply": (x - xp).abs().max().item(),
                         "solve": (xs - xsp).abs().max().item()},
-        "upper_zero": bool((torch.triu(L, 1) == 0).all()),
+        "upper_zero": bool((torch.triu(L, 1) == 0).all() and (torch.triu(L_bad, 1) == 0).all()),
         "envs_over_bounds": int(over.sum()), "finite": finite,
+        "nan_on_non_spd": {k: bool(torch.equal(v, hit)) for k, v in nan_env.items()},
+        "same_bits": same_bits,
     }
 
 
@@ -514,7 +545,9 @@ def main(argv=None):
             "random_spd": compare_linalg(lprobe, spd_M, spd_b)}
         emit("linalg_vs_plain", envs=N, n=model.nv, **linalg_results)
         for name, r in linalg_results.items():
-            if r["envs_over_bounds"] or not r["finite"] or not r["upper_zero"]:
+            if r["envs_over_bounds"] or not r["finite"] or not r["upper_zero"] \
+                    or not all(r["nan_on_non_spd"].values()) \
+                    or not all(all(v.values()) for v in r["same_bits"].values()):
                 raise AssertionError(
                     f"linalg ({name}): a kernel disagrees with its plain version: {r}")
         linalg_err = {k: max(r["max_abs_err"][k] for r in linalg_results.values())

@@ -5,7 +5,8 @@ iteration. Port of the reference package's algo/runner.py (`init_carry`,
 The rollout runs the actor only; one batched critic pass over the stored
 trajectory then gives the values for GAE and the timeout bootstrap.
 Advantages are normalized over the whole batch, and `course_gain` is
-updated on the device. Checkpoints are not ported yet.
+updated on the device. Checkpoints are not ported yet, so a config with
+`runner.resume` set is refused rather than trained from scratch.
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ class IterationMetrics(NamedTuple):
 
 class OnPolicyRunner:
     def __init__(self, env: XBotLEnv, train_cfg: XBotLCfgPPO):
+        if train_cfg.runner.resume:
+            raise NotImplementedError("runner.resume=True: checkpoints are not ported yet, so "
+                                      "the port cannot resume a run")
         self.env = env
         self.cfg = train_cfg
         self.device = env.device

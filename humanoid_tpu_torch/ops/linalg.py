@@ -83,8 +83,10 @@ def build():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.linalg_max_n.restype = ctypes.c_int
-        lib.chol_solve_envs_per_block.restype = ctypes.c_int
-        lib.chol_solve_envs_per_block.argtypes = []
+        for kernel in ("chol_factor", "chol_apply", "chol_solve"):
+            fn = getattr(lib, f"{kernel}_envs_per_block")
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
         if lib.linalg_max_n() != MAX_N:
             raise RuntimeError(f"linalg.cu takes n <= {lib.linalg_max_n()}, the wrapper {MAX_N}")
         build_info = info
@@ -136,10 +138,8 @@ class CholeskyKernels:
     @staticmethod
     def design(kernel: str) -> str:
         """How the built kernel spreads its work over the card."""
-        if kernel == "chol_solve":
-            return (f"a warp per env, {build().chol_solve_envs_per_block()} envs per block, "
-                    "matrices staged in shared memory")
-        return "one thread per env"
+        envs = getattr(build(), f"{kernel}_envs_per_block")()
+        return f"a warp per env, {envs} envs per block, matrices staged in shared memory"
 
     def _run(self, kernel, mat, vec=None):
         out = _launch(kernel, mat, vec)

@@ -213,6 +213,47 @@ def test_cuda_solve_tail_blocks_match_plain(cuda_device, count, n):
     assert torch.equal(xs, xs2)
 
 
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,n", [(4093, 18), (4095, 18), (4098, 18), (4093, 24), (4095, 24),
+                                     (4098, 24), (3, 6)])
+def test_cuda_factor_apply_tail_blocks_match_plain(cuda_device, count, n):
+    """B3 and B4 (a warp per env, several envs per block) at counts of envs
+    that leave a part-filled last block, and at n = 24, the widest they
+    take; the last env, in the tail block, is not positive definite and
+    gives NaN, with exact zeros above the diagonal of L all the same; the
+    apply never reads the upper triangle of L (NaN there gives the same
+    bits); a second launch gives the same bits."""
+    M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(n, count, 1e3, count + n))
+    M[-1, 2, 2] = -1.0
+    k = linalg.CholeskyKernels()
+    assert k.design("chol_factor").startswith("a warp per env")
+    assert k.design("chol_apply").startswith("a warp per env")
+    L, L2 = k.factor_spd_batch(M), k.factor_spd_batch(M)
+    Lp = linalg.chol_factor_unrolled(M)
+    x, x2 = k.apply_spd_batch(Lp, b), k.apply_spd_batch(Lp, b)
+    upper_nan = Lp.clone()
+    rows, cols = torch.triu_indices(n, n, 1, device=cuda_device)
+    upper_nan[:, rows, cols] = float("nan")
+    x3 = k.apply_spd_batch(upper_nan, b)
+    xp = linalg.chol_apply_unrolled(Lp, b)
+    torch.cuda.synchronize()
+    assert k.launches == {"chol_factor": 2, "chol_apply": 3, "chol_solve": 0}
+    spd = slice(0, count - 1)
+    assert float((L[spd] - Lp[spd]).abs().amax((1, 2)).div(Lp[spd].abs().amax((1, 2))).max()) \
+        < 1e-4
+    tol = max(1e-5, float(np.finfo(np.float32).eps) * 1e3)
+    assert float((x[spd] - xp[spd]).abs().amax(1).div(xp[spd].abs().amax(1)).max()) < tol
+    assert bool(torch.isfinite(L[spd]).all()) and bool(torch.isfinite(x[spd]).all())
+    assert bool(torch.isnan(L[-1]).any()) and bool(torch.isnan(x[-1]).any())
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert torch.equal(_bits(L), _bits(L2))
+    assert torch.equal(_bits(x), _bits(x2)) and torch.equal(_bits(x), _bits(x3))
+
+
 @pytest.mark.cuda
 def test_cuda_linalg_gives_nan_on_non_spd_and_checks_inputs(cuda_device):
     M, b = (torch.as_tensor(x, device=cuda_device) for x in _spd(18, 64, 1e2, 1))

@@ -15,6 +15,7 @@ reference's kernel itself is 3.3e-4 off the float64 solution).
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 
@@ -215,10 +216,19 @@ def test_kernel_source_matches_plain_on_host(host_linalg, n, cond):
                                atol=tol(cond) * float(xsp.abs().max()))
 
 
+def _upper_nan(A):
+    """A copy of the batch A with NaN above each matrix's diagonal."""
+    n = A.shape[-1]
+    out = np.array(A, copy=True)
+    out[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    return out
+
+
 @pytest.mark.parametrize("n", [6, 18, 24])
 def test_kernel_source_gives_nan_on_host_for_non_spd(host_linalg, n):
-    """NaN on a negative or zero pivot; the solve (B5's lane code, with one
-    lane on the host) never reads the upper triangle of M."""
+    """NaN on a negative or zero pivot, and exact zeros above the diagonal
+    of L all the same; the lane bodies (with one lane on the host) never
+    read the upper triangle of M or of L: NaN there gives the same bits."""
     M = spd(n, 5, 1e2, count=3)
     M[1, min(7, n - 1), min(7, n - 1)] = -1.0
     M[2] = 0.0
@@ -227,20 +237,28 @@ def test_kernel_source_gives_nan_on_host_for_non_spd(host_linalg, n):
     L = _host(host_linalg, "host_factor", M, out_shape=(3, n, n))
     assert bool(torch.isfinite(x[0]).all()) and bool(torch.isfinite(L[0]).all())
     assert all(bool(torch.isnan(x[i]).any()) and bool(torch.isnan(L[i]).any()) for i in (1, 2))
-    upper_nan = M.copy()
-    upper_nan[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
-    assert torch.equal(_host(host_linalg, "host_solve", upper_nan, b, out_shape=(3, n))[0], x[0])
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert torch.equal(_host(host_linalg, "host_solve", _upper_nan(M), b, out_shape=(3, n))[0],
+                       x[0])
+    assert torch.equal(_host(host_linalg, "host_factor", _upper_nan(M), out_shape=(3, n, n))[0],
+                       L[0])
+    xa = _host(host_linalg, "host_apply", L[:1], b[:1], out_shape=(1, n))
+    assert bool(torch.isfinite(xa).all())
+    assert torch.equal(_host(host_linalg, "host_apply", _upper_nan(L[:1].numpy()), b[:1],
+                             out_shape=(1, n)), xa)
 
 
-def test_kernel_source_on_mass_matrices(host_linalg, tmp_path):
-    """The CRBA mass matrices of the stand-in robot in random states."""
+@pytest.fixture(scope="module")
+def mass_matrices(tmp_path_factory):
+    """The CRBA mass matrices (N, 18, 18) of the stand-in robot in random
+    states, right-hand sides (N, 18) and their largest condition number."""
     from humanoid_tpu_torch.assets import write_xbot_topology_urdf
     from humanoid_tpu_torch.physics.dynamics import assemble_mass_matrix, compute_kinematics_bias
     from humanoid_tpu_torch.physics.kinematics import RobotTensors
     from humanoid_tpu_torch.physics.urdf import load_urdf
 
-    rt = RobotTensors.from_model(load_urdf(write_xbot_topology_urdf(str(tmp_path)),
-                                           armature=0.01), "cpu")
+    urdf = write_xbot_topology_urdf(str(tmp_path_factory.mktemp("robot")))
+    rt = RobotTensors.from_model(load_urdf(urdf, armature=0.01), "cpu")
     rng = np.random.default_rng(9)
     q = rng.normal(size=(N, 4)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -248,11 +266,57 @@ def test_kernel_source_on_mass_matrices(host_linalg, tmp_path):
     out = compute_kinematics_bias(rt, f(rng.normal(size=(N, 3))), f(q),
                                   f(rng.uniform(-1, 1, (N, 12))), f(rng.normal(size=(N, 18))))
     M = assemble_mass_matrix(rt, out[2], out[3]).contiguous()
-    b = f(rng.normal(size=(N, 18)))
-    xs = _host(host_linalg, "host_solve", M, b, out_shape=(N, 18))
-    x64 = np.linalg.solve(M.double().numpy(), b.double().numpy()[..., None])[..., 0]
     cond = np.linalg.cond(M.double().numpy()).max()
     assert cond > 1e2
+    return M, f(rng.normal(size=(N, 18))), cond
+
+
+def test_kernel_source_on_mass_matrices(host_linalg, mass_matrices):
+    """B3, B4 and B5's lane bodies on the mass matrices: the solve against
+    float64 and the plain version, the factor and the apply against theirs."""
+    M, b, cond = mass_matrices
+    xs = _host(host_linalg, "host_solve", M, b, out_shape=(N, 18))
+    x64 = np.linalg.solve(M.double().numpy(), b.double().numpy()[..., None])[..., 0]
     np.testing.assert_allclose(xs.numpy(), x64, rtol=0, atol=tol(cond) * np.abs(x64).max())
     np.testing.assert_allclose(xs.numpy(), tlinalg.chol_solve_unrolled(M, b).numpy(), rtol=0,
                                atol=tol(cond) * np.abs(x64).max())
+    L = _host(host_linalg, "host_factor", M, out_shape=(N, 18, 18))
+    Lp = tlinalg.chol_factor_unrolled(M)
+    np.testing.assert_allclose(L.numpy(), Lp.numpy(), rtol=0, atol=1e-4 * float(Lp.abs().max()))
+    assert bool((torch.triu(L, 1) == 0).all())
+    x = _host(host_linalg, "host_apply", Lp, b, out_shape=(N, 18))
+    xp = tlinalg.chol_apply_unrolled(Lp, b)
+    np.testing.assert_allclose(x.numpy(), xp.numpy(), rtol=0,
+                               atol=tol(cond) * float(xp.abs().max()))
+
+
+def test_kernel_source_matches_reference_kernels_on_mass_matrices(host_linalg, mass_matrices):
+    """B3's and B4's lane bodies (one lane on the host) against the
+    reference's _chol_factor_kernel and _chol_apply_kernel in interpret
+    mode, on the mass matrices, within the tolerances of
+    test_plain_versions_match_reference_kernels_in_interpret_mode."""
+    M, b, cond = mass_matrices
+    n = 18
+    Lk = _pallas(jlinalg._chol_factor_kernel, n, n * n, M.numpy()).reshape(N, n, n)
+    L = _host(host_linalg, "host_factor", M, out_shape=(N, n, n)).numpy()
+    np.testing.assert_allclose(L, Lk, rtol=0, atol=1e-4 * np.abs(Lk).max())
+    assert np.all(np.triu(L, 1) == 0.0)
+    xa = _pallas(jlinalg._chol_apply_kernel, n, n, Lk, b.numpy())
+    x = _host(host_linalg, "host_apply", Lk, b, out_shape=(N, n)).numpy()
+    np.testing.assert_allclose(x, xa, rtol=0, atol=tol(cond) * np.abs(xa).max())
+
+
+def test_variant_edits_apply_to_the_kernel_source():
+    """scripts/linalg_variants.py's text edits still match csrc/linalg.cu:
+    each variant builds from the source with its edit in place, and only
+    the envs-per-block values the source already has leave it unchanged."""
+    from humanoid_tpu_torch.scripts import linalg_variants
+
+    with open(CSRC) as f:
+        src = f.read()
+    out = linalg_variants.variants(src)
+    assert out.pop("source") == src
+    envs = {k: re.search(rf"constexpr int {k}_ENVS = (\d+);", src).group(1)
+            for k in ("FACTOR", "APPLY")}
+    same = {name for name, text in out.items() if text == src}
+    assert same == {f"factor_envs={envs['FACTOR']}", f"apply_envs={envs['APPLY']}"}
