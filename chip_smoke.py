@@ -25,6 +25,17 @@ and the engine path (`sim.use_pallas_substep=False`) for 1 iteration each
 of `humanoid_ppo`, `humanoid_ppo_terrain` and `humanoid_ppo_penalty` with
 an unfrozen factor, through registry.make_env(env_cfg=...) and
 make_alg_runner. Each path's kernel launches per iteration are checked.
+The checkpoint phase trains `humanoid_ppo` for 2 iterations with
+--full-state, loads model_2 into a new runner (the same bits), resumes
+the exact state for 1 iteration through `scripts.train.main --resume` (the
+restored carry and generator the saved ones, in bits; its parameters'
+largest difference from an unbroken 3-iteration run is printed, not
+gated), runs `scripts.play.main` on that run at 1 and at 4096 envs for
+300 steps (B1 once per step, finite states; policy.npz, the TorchScript
+pair and policy.onnx within 1e-5 of the float32 actor; the bf16 actor's
+gap printed), holds B1 against its plain version at 1 and 37 envs, and
+times save, save_state, load and load_state. Every run writes its
+checkpoints and logs into a temporary directory, removed at the end.
 A determinism phase runs the control step's PGS and penalty instances
 several times on the same inputs and requires identical outputs (a missing
 sync between the lanes of a team shows as run-to-run differences). Then it
@@ -48,8 +59,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 DEVICE = "cuda"
@@ -83,8 +96,11 @@ RAMP = (0.05, -0.05)             # gx, gy of the ramp the extras instance stands
 WARM6 = {"pgs_freeze_prep": True, "pgs_iterations": 6, "pgs_warm_start": True}
 SAMPLER_OPS_PER_SCAN, SAMPLER_OPS_PER_CONTACT = 13, 16
 REPEATS = 5                      # runs of each instance in the determinism phase
+PLAY_STEPS = 300                 # the reference play's default rollout
+SMALL_N = (1, 37)                # B1 vs plain where play runs it: 1 env, a tail block
+TOL_EXPORT = 1e-5                # the exports against the float32 actor
 PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism", "train",
-          "time")
+          "checkpoint", "time")
 
 
 def emit(phase, **fields):
@@ -293,11 +309,13 @@ def sampler_points(env, seed=3):
     return scan.contiguous(), con.contiguous()
 
 
-def train_phase(train, registry, task, iterations, log_name, sim=None, n_envs=N):
-    """Train `task` at n_envs envs: through scripts.train.main, or, with
-    `sim` overrides of its SimCfg, through registry.make_env(env_cfg=...)
-    and make_alg_runner. The env and its wrappers are new, so every count
-    starts at 0. Returns (runner, carry, rows, peak)."""
+def train_phase(train, registry, task, iterations, log_name, log_root, sim=None, n_envs=N,
+                argv=()):
+    """Train `task` at n_envs envs: through scripts.train.main (with
+    `argv` added), saving under `log_root`, or, with `sim` overrides of its
+    SimCfg, through registry.make_env(env_cfg=...) and make_alg_runner,
+    saving nothing. The env and its wrappers are new, so every count starts
+    at 0. Returns (runner, carry, rows, peak)."""
     import dataclasses
 
     import torch
@@ -319,14 +337,14 @@ def train_phase(train, registry, task, iterations, log_name, sim=None, n_envs=N)
 
     if sim is None:
         runner, carry = train.main(["--task", task, "--num-envs", str(n_envs),
-                                    "--max-iterations", str(iterations), "--device", DEVICE],
-                                   log_fn=log_fn)
+                                    "--max-iterations", str(iterations), "--device", DEVICE,
+                                    "--log-root", log_root, *argv], log_fn=log_fn)
     else:
         cfg, _ = registry.get_cfgs(task)
         cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=n_envs),
                           sim=dataclasses.replace(cfg.sim, **sim))
         env, _, train_cfg = registry.make_env(task, device=DEVICE, env_cfg=cfg)
-        runner = registry.make_alg_runner(env, train_cfg)
+        runner = registry.make_alg_runner(env, train_cfg, log_root=False)
         carry = runner.learn(iterations, log_fn=log_fn)
     return runner, carry, rows, torch.cuda.max_memory_allocated()
 
@@ -456,6 +474,219 @@ def compare_linalg(chol, M, b, fixed=None):
     }
 
 
+def same_bits(a, b):
+    """Equal tensors, bit for bit (float32 compared as int32), or both None."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    as_bits = (lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x)  # noqa: E731
+    return a.shape == b.shape and torch.equal(as_bits(a), as_bits(b))
+
+
+def same_training_state(a, b):
+    """Every parameter and Adam moment in bits, Adam's count and learning
+    rate, and the iteration, of runners a and b."""
+    return {
+        "params": all(same_bits(p.detach(), q.detach())
+                      for p, q in zip(a.net.parameters(), b.net.parameters())),
+        "adam_moments": all(same_bits(x, y) for xs, ys in ((a.opt.mu, b.opt.mu),
+                                                           (a.opt.nu, b.opt.nu))
+                            for x, y in zip(xs, ys)),
+        "count": a.opt.count == b.opt.count, "lr": same_bits(a.opt.lr, b.opt.lr),
+        "iteration": a.iteration == b.iteration}
+
+
+def same_carry(a, b):
+    """Each field of two iteration carries in bits, by name."""
+    out = {f"env_state.{f}": same_bits(x, y)
+           for f, x, y in zip(a.env_state._fields, a.env_state, b.env_state) if f != "phys"}
+    out.update({f"phys.{f}": same_bits(x, y)
+                for f, x, y in zip(a.env_state.phys._fields, a.env_state.phys, b.env_state.phys)})
+    out.update(obs=same_bits(a.obs, b.obs), critic_obs=same_bits(a.critic_obs, b.critic_obs))
+    return out
+
+
+def timed(fn):
+    """(result, seconds) of fn(), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def checkpoint_phase(train, play, registry, probe, model, inputs, root):
+    """humanoid_ppo at N envs through the entry points a user calls: train
+    2 iterations with --full-state, load model_2 into a new runner (the same
+    bits), resume from the exact state for 1 iteration (the restored carry
+    and generator the saved ones, in bits), then `play` the resumed run's
+    checkpoint at 1 and at N envs and hold its four artifacts against the
+    float32 actor. Also B1 against its plain version at 1 and 37 envs (the
+    control phase's comparisons on the first envs of `inputs`) and its
+    device time there, and the seconds and bytes of save, save_state, load
+    and load_state. Returns (summary, launches by path)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.algo.runner import OnPolicyRunner
+    from humanoid_tpu_torch.deploy.npz_policy import NpzPolicy
+    from humanoid_tpu_torch.deploy.onnx_loader import load_onnx_mlp
+    from humanoid_tpu_torch.utils.checkpoint import get_load_path
+
+    task, S = "humanoid_ppo", STEPS_PER_ITERATION
+    runs, unbroken_root = os.path.join(root, "runs"), os.path.join(root, "unbroken")
+    cfg, _ = registry.get_cfgs(task)
+    expect = {"kernel_launches": S, "sampler_launches": 0, "factor_launches": 0,
+              "apply_launches": 0, "solve_launches": 0}
+    out, launches = {}, {}
+
+    # 1. two iterations, saved with the exact state
+    first, carry2, rows, _ = train_phase(train, registry, task, 2, "checkpoint_train", runs,
+                                         n_envs=N, argv=["--full-state"])
+    gen2 = first.gen.get_state().clone()
+    check_training(task, first, carry2, rows, cfg, 2, expect, N)
+    launches["checkpoint: train 2 iterations"] = play.kernel_launches(first.env)
+    run = first.log_dir
+    files = sorted(os.listdir(run))
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    names = {"Loss/value_function", "Loss/surrogate", "Loss/base_lin_vel", "Loss/sym",
+             "Loss/learning_rate", "Policy/mean_noise_std", "Policy/kl", "Train/mean_reward",
+             "Train/mean_episode_length", "Train/mean_step_reward", "Train/ep_fail_frac",
+             "Perf/total_fps", "Perf/iter_time",
+             *(f"Episode/rew_{n}" for n in first.env.reward_names)}
+    if not {"model_2.pt", "state_2.pt", "metrics.jsonl"} <= set(files) \
+            or [r["it"] for r in logged] != [1, 2] or any(set(r) - {"it"} != names
+                                                          for r in logged):
+        raise AssertionError(f"checkpoint: the run wrote {files} and logged {logged}")
+
+    # 2. model_2 into a new runner: the same bits
+    loaded = OnPolicyRunner(first.env, first.cfg)
+    model_path = get_load_path(os.path.join(runs, first.cfg.runner.experiment_name))
+    loaded.load(model_path)
+    out["load_same_bits"] = same_training_state(first, loaded)
+    if not all(out["load_same_bits"].values()):
+        raise AssertionError(f"checkpoint: load gave other bits: {out['load_same_bits']}")
+
+    # the seconds and bytes of each way in and out, at N envs
+    io_dir = os.path.join(root, "io")
+    io = {}
+    for name, fn in (("save", lambda: first.save(os.path.join(io_dir, "model_2"))),
+                     ("save_state", lambda: first.save_state(carry2,
+                                                             os.path.join(io_dir, "state_2")))):
+        path, sec = timed(fn)
+        io[name] = {"s": sec, "bytes": os.path.getsize(path)}
+    for name, fn in (("load", lambda: loaded.load(os.path.join(io_dir, "model_2"))),
+                     ("load_state", lambda: loaded.load_state(os.path.join(io_dir, "state_2")))):
+        _, sec = timed(fn)
+        io[name] = {"s": sec, "bytes": io[name.replace("load", "save")]["bytes"]}
+    out["io"] = io
+    del loaded
+
+    # 3. resume through train.main from the exact state
+    restored = {}
+    load_state = OnPolicyRunner.load_state
+
+    def spy(runner, path):
+        carry = load_state(runner, path)
+        restored.update(path=path, carry=carry, gen=runner.gen.get_state().clone())
+        return carry
+
+    OnPolicyRunner.load_state = spy
+    try:
+        resumed, carry3, rows, _ = train_phase(train, registry, task, 1, "checkpoint_resume", runs,
+                                               n_envs=N, argv=["--resume", "--full-state"])
+    finally:
+        OnPolicyRunner.load_state = load_state
+    check_training(task, resumed, carry3, rows, cfg, 1, expect, N)
+    launches["checkpoint: resume 1 iteration"] = play.kernel_launches(resumed.env)
+    carry_bits = same_carry(carry2, restored["carry"]) if restored else {}
+    out["resume"] = {
+        "from": restored.get("path"), "iteration": resumed.iteration,
+        "carry_same_bits": all(carry_bits.values()) if carry_bits else False,
+        "carry_fields_differing": [k for k, v in carry_bits.items() if not v],
+        "generator_same_bits": bool(restored) and torch.equal(restored["gen"], gen2),
+        "kernel_launches": [r["kernel_launches"] for r in rows],
+        "value_loss": [r["value_loss"] for r in rows]}
+    if not (restored and restored["path"].endswith("state_2") and resumed.iteration == 3
+            and out["resume"]["carry_same_bits"] and out["resume"]["generator_same_bits"]):
+        raise AssertionError(f"checkpoint: the exact-state resume failed: {out['resume']}")
+    del first, carry2, restored
+
+    # the unbroken 3-iteration run of the same seed: recorded, not a gate
+    unbroken, _, _, _ = train_phase(train, registry, task, 3, "checkpoint_unbroken",
+                                    unbroken_root, n_envs=N)
+    out["resume_vs_unbroken_max_param_diff"] = max(
+        (p.detach() - q.detach()).abs().max().item()
+        for p, q in zip(resumed.net.parameters(), unbroken.net.parameters()))
+    launches["checkpoint: unbroken 3 iterations"] = play.kernel_launches(unbroken.env)
+    del unbroken
+
+    # 4. play the resumed run (model_3) at 1 and at N envs
+    f32 = copy.deepcopy(resumed.net).cpu()
+    f32.compute_dtype = torch.float32
+    obs = torch.as_tensor(np.random.default_rng(5).normal(size=(256, f32.actor.layers[0]
+                                                                 .in_features)),
+                          dtype=torch.float32)
+    with torch.no_grad():
+        want, want_vel = f32.act_mean(obs).numpy(), f32.estimate_vel(obs).numpy()
+        bf16_gap = (resumed.net.act_mean(obs.to(DEVICE)).cpu().numpy() - want)
+    plays = {}
+    for n in (1, N):   # play's default env count, and training's
+        res = play.main(["--task", task, "--num-envs", str(n), "--steps", str(PLAY_STEPS),
+                         "--log-root", runs, "--out-dir", os.path.join(root, f"play_{n}"),
+                         "--device", DEVICE])
+        d = res["out_dir"]
+        artifacts = ["policy.npz", "policy_1.pt", "base_lin_vel.pt", "policy.onnx",
+                     "openloop_action.npz", "eval_states.npz"]
+        with torch.no_grad():
+            err = {"npz_actor": np.abs(NpzPolicy(res["npz"])(obs.numpy()) - want).max(),
+                   "npz_vel": np.abs(NpzPolicy(res["npz"], "vel")(obs.numpy()) - want_vel).max(),
+                   "onnx": np.abs(load_onnx_mlp(os.path.join(d, "policy.onnx"))(obs.numpy())
+                                  - want).max(),
+                   "torchscript_actor": np.abs(torch.jit.load(os.path.join(d, "policy_1.pt"))(
+                       obs).numpy() - want).max(),
+                   "torchscript_vel": np.abs(torch.jit.load(os.path.join(d, "base_lin_vel.pt"))(
+                       obs).numpy() - want_vel).max()}
+        plays[n] = {"envs": n, "steps": res["steps"], "launches": res["launches"],
+                    "steps_per_s": res["steps_per_s"], "rollout_s": res["rollout_s"],
+                    "final_z": res["final_z"], "finite": res["finite"],
+                    "artifacts": {a: os.path.isfile(os.path.join(d, a)) for a in artifacts},
+                    "max_abs_err_vs_float32_actor": {k: float(v) for k, v in err.items()},
+                    "iteration": int(np.load(res["npz"])["meta_iteration"])}
+        launches[f"play {n} env" + ("s" if n > 1 else "")] = res["launches"]
+        if res["launches"]["control_step_kernel"] != res["steps"] or not res["finite"] \
+                or not all(plays[n]["artifacts"].values()) or plays[n]["iteration"] != 3 \
+                or not max(err.values()) <= TOL_EXPORT:
+            raise AssertionError(f"checkpoint: play at {n} envs: {plays[n]}")
+    out["play"] = list(plays.values())
+    out["bf16_actor_max_abs_gap_vs_export"] = float(np.abs(bf16_gap).max())
+    del resumed
+
+    # 5. B1 against its plain version where play runs it: 1 env, and 37 (a tail block)
+    small = {}
+    for n in SMALL_N:
+        pack, masses, friction, targets = inputs
+        sub = (pack[:, :n].contiguous(), masses[:n].contiguous(), friction[:n].contiguous(),
+               targets[:n].contiguous())
+        for name, args in (("shipping", (10, True, True)), ("exact", (1, False, False))):
+            r = compare(probe, model, sub, *args)
+            again = probe(*sub, *args)[0]
+            r["same_bits_on_repeat"] = same_bits(probe(*sub, *args)[0], again)
+            r["ms"] = graph_ms(lambda: probe(*sub, *args), TIMED_LAUNCHES)
+            small[f"{name}_{n}"] = r
+            check_within(f"B1 {name} at {n} envs", r)
+            if not r["same_bits_on_repeat"]:
+                raise AssertionError(f"B1 {name} at {n} envs: other bits on repeat")
+    out["b1_small_n_vs_plain"] = small
+    return out, launches
+
+
 def parse_phases(argv):
     import argparse
 
@@ -473,9 +704,19 @@ def main(argv=None):
     phases = parse_phases(argv)
     import torch
 
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    log_root = tempfile.mkdtemp(prefix="chip_smoke_")   # every run's checkpoints and logs
+    try:
+        run(phases, log_root)
+    finally:
+        shutil.rmtree(log_root, ignore_errors=True)
+
+
+def run(phases, log_root):
+    import torch
+
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -485,7 +726,7 @@ def main(argv=None):
                                                       operations_per_env)
     from humanoid_tpu_torch.ops.terrain_sampler import (TerrainSampler, sample_bytes,
                                                         sample_plain, touched_cells)
-    from humanoid_tpu_torch.scripts import train
+    from humanoid_tpu_torch.scripts import play, train
     from humanoid_tpu_torch.utils import registry
 
     # ---- 0. device ----
@@ -731,15 +972,11 @@ def main(argv=None):
         cfg, _ = registry.get_cfgs(task)
         n_envs = N * cfg.env.num_envs // 4096      # the task's count: humanoid_ppo_8k 2 N
         runner, carry, rows, peak = train_phase(train, registry, task, iterations,
-                                                "train_iteration", sim, n_envs)
+                                                "train_iteration", log_root, sim, n_envs)
         expect = {**zero, **nonzero}
         checks = check_training(path, runner, carry, rows, cfg, iterations, expect, n_envs)
         env_ = runner.env
-        launches[path] = {
-            "control_step_kernel": env_.physics.launches,
-            "terrain_sampler_kernel": env_.sampler.launches if env_.sampler is not None else 0,
-            **{f"chol_{k}_kernel": env_.cholesky.launches[f"chol_{k}"]
-               for k in ("factor", "apply", "solve")}}
+        launches[path] = play.kernel_launches(env_)
         steady = rows[1:] if len(rows) > 1 else rows
         summaries[path] = {
             "task": task, "sim": sim or {}, "envs": n_envs, "iterations": len(rows),
@@ -762,6 +999,16 @@ def main(argv=None):
         if any(launches[path][names[k]] == 0 for k in nonzero):
             raise AssertionError(f"{path}: a kernel of the path was not launched: {launches}")
         del runner, carry, env_
+
+    # ---- 4b. checkpoints, exact-state resume, export and play (B1 at 1, N envs) ----
+    if "checkpoint" in phases:
+        t_path = time.perf_counter()
+        ckpt, ckpt_launches = checkpoint_phase(train, play, registry, probe, model, on_flat,
+                                               log_root)
+        launches.update(ckpt_launches)
+        summaries["checkpoint"] = {"wall_s": time.perf_counter() - t_path}
+        emit("checkpoint", envs=N, task="humanoid_ppo", launches=ckpt_launches,
+             wall_s=summaries["checkpoint"]["wall_s"], **ckpt)
 
     # ---- 5. kernel times against their bounds ----
     timing = {}

@@ -5,21 +5,30 @@ iteration. Port of the reference package's algo/runner.py (`init_carry`,
 The rollout runs the actor only; one batched critic pass over the stored
 trajectory then gives the values for GAE and the timeout bootstrap.
 Advantages are normalized over the whole batch, and `course_gain` is
-updated on the device. Checkpoints are not ported yet, so a config with
-`runner.resume` set is refused rather than trained from scratch.
+updated on the device.
+
+Checkpoints (reference `save`, `save_state`, `load_state`, `load`):
+`model_<it>.pt` holds the network, Adam's moments keyed by parameter name,
+its step count and learning rate, and the iteration; `state_<it>.pt` adds
+the iteration carry field by field and the generator's state, so that a run
+resumed from it repeats the unbroken run.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from ..config.structs import XBotLCfgPPO
 from ..env.xbotl import EnvState, XBotLEnv
+from ..physics.engine import PhysState
 from .gae import compute_gae
 from .networks import MIN_STD, ActorCritic, log_prob
 from .ppo import Adam, Batch, UpdateMetrics, ppo_update, tile_permutation
+
+TERRAIN_LEVEL_BINS = 10
 
 
 class IterationCarry(NamedTuple):
@@ -44,15 +53,23 @@ class IterationMetrics(NamedTuple):
     factor_launches: int           # Cholesky factor kernel launches (engine path)
     apply_launches: int            # Cholesky apply kernel launches (engine path)
     solve_launches: int            # Cholesky solve kernel launches (engine path)
+    terrain_level_mean: torch.Tensor   # mean curriculum row at the iteration's end (0 on plane)
+    terrain_level_hist: torch.Tensor   # (10,) share of envs on each row
+
+
+def _as_dict(x):
+    """A NamedTuple (nested ones too) as a dict by field name, for a
+    payload that `torch.load(weights_only=True)` reads back."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return {f: _as_dict(getattr(x, f)) for f in x._fields}
+    return x
 
 
 class OnPolicyRunner:
-    def __init__(self, env: XBotLEnv, train_cfg: XBotLCfgPPO):
-        if train_cfg.runner.resume:
-            raise NotImplementedError("runner.resume=True: checkpoints are not ported yet, so "
-                                      "the port cannot resume a run")
+    def __init__(self, env: XBotLEnv, train_cfg: XBotLCfgPPO, log_dir: Optional[str] = None):
         self.env = env
         self.cfg = train_cfg
+        self.log_dir = log_dir
         self.device = env.device
         ecfg = env.cfg.env
         pcfg = train_cfg.policy
@@ -172,6 +189,7 @@ class OnPolicyRunner:
         self._sync()
         t2 = time.perf_counter()
         self.iteration += 1
+        levels = es.terrain_levels
         metrics = IterationMetrics(
             update=update, mean_step_reward=rew_buf.mean(), ep_rew_sums=ep_rew,
             ep_count=ep_stats[0], ep_len_sum=ep_stats[1], ep_term_count=ep_stats[2],
@@ -181,17 +199,111 @@ class OnPolicyRunner:
             sampler_launches=self._sampler_launches() - sampler0,
             **{f"{k}_launches": env.cholesky.launches[f"chol_{k}"] - chol0[f"chol_{k}"]
                for k in ("factor", "apply", "solve")},
+            terrain_level_mean=levels.float().mean(),
+            terrain_level_hist=(levels[:, None] == torch.arange(
+                TERRAIN_LEVEL_BINS, device=dev, dtype=levels.dtype)).float().mean(0),
         )
         return IterationCarry(env_state=es, obs=obs, critic_obs=cobs), metrics
 
-    def learn(self, num_iterations: int,
-              log_fn: Optional[Callable] = None) -> IterationCarry:
-        """Train for `num_iterations` from a fresh env at random episode
-        lengths; log_fn(it, metrics, env_steps_per_s) is called after each."""
-        carry = self.init_carry(init_at_random_ep_len=True)
+    def learn(self, num_iterations: int, init_at_random_ep_len: bool = True,
+              log_fn: Optional[Callable] = None,
+              carry: Optional[IterationCarry] = None) -> IterationCarry:
+        """Train for `num_iterations`, from `carry` or else from a fresh env;
+        log_fn(it, metrics, env_steps_per_s) is called after each. With a
+        log_dir, saves every `save_interval` iterations and at the end (and
+        the exact state beside each save when `runner.save_env_state`)."""
+        if carry is None:
+            carry = self.init_carry(init_at_random_ep_len)
         steps = self.cfg.runner.num_steps_per_env * self.env.cfg.env.num_envs
+        every = self.cfg.runner.save_interval
+        saved_at = None
         for _ in range(num_iterations):
             carry, metrics = self.train_iteration(carry)
             if log_fn is not None:
                 log_fn(self.iteration, metrics, steps / (metrics.rollout_s + metrics.update_s))
+            if self.log_dir and every and self.iteration % every == 0:
+                self._save_all(carry)
+                saved_at = self.iteration
+        if self.log_dir and saved_at != self.iteration:
+            self._save_all(carry)
         return carry
+
+    def _save_all(self, carry: IterationCarry):
+        self.save()
+        if self.cfg.runner.save_env_state:
+            self.save_state(carry)
+
+    # ------------------------------------------------------------------
+    # checkpoints
+
+    def _payload(self) -> Dict:
+        names = [n for n, _ in self.net.named_parameters()]
+        opt = self.opt
+        return {
+            "model": self.net.state_dict(),
+            "optimizer": {"mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)),
+                          "count": opt.count, "lr": opt.lr},
+            "iteration": self.iteration,
+        }
+
+    def _restore(self, payload: Dict, load_optimizer: bool = True):
+        self.net.load_state_dict(payload["model"])
+        if load_optimizer:
+            o = payload["optimizer"]
+            names = [n for n, _ in self.net.named_parameters()]
+            for key, buffers in (("mu", self.opt.mu), ("nu", self.opt.nu)):
+                if sorted(o[key]) != sorted(names):
+                    raise KeyError(f"Adam {key} is keyed by {sorted(o[key])}, the network's "
+                                   f"parameters are {sorted(names)}")
+                with torch.no_grad():
+                    for name, buf in zip(names, buffers):
+                        buf.copy_(o[key][name])
+            self.opt.count = int(o["count"])
+            self.opt.lr = o["lr"].to(self.device)
+        self.iteration = int(payload["iteration"])
+
+    def save(self, path: Optional[str] = None) -> str:
+        """The model, Adam and the iteration, to `path` (default
+        <log_dir>/model_<it>) + ".pt"."""
+        from ..utils.checkpoint import save_checkpoint
+
+        path = path or os.path.join(self.log_dir, f"model_{self.iteration}")
+        return save_checkpoint(path, self._payload())
+
+    def load(self, path: str, load_optimizer: bool = True) -> None:
+        from ..utils.checkpoint import load_checkpoint
+
+        self._restore(load_checkpoint(path, self.device), load_optimizer)
+
+    def save_state(self, carry: IterationCarry, path: Optional[str] = None) -> str:
+        """Exact state: everything `save` writes, the iteration carry field by
+        field (EnvState and PhysState as dicts, None fields kept) and the
+        generator's state, to `path` (default <log_dir>/state_<it>) + ".pt"."""
+        from ..utils.checkpoint import save_checkpoint
+
+        path = path or os.path.join(self.log_dir, f"state_{self.iteration}")
+        return save_checkpoint(path, {**self._payload(), "carry": _as_dict(carry),
+                                      "generator": self.gen.get_state()})
+
+    def load_state(self, path: str) -> IterationCarry:
+        """Restore an exact-state checkpoint: the runner's model, Adam,
+        iteration and generator, and the carry to continue from."""
+        from ..utils.checkpoint import load_checkpoint
+
+        payload = load_checkpoint(path, self.device)
+        self._restore(payload)
+        self.gen.set_state(payload["generator"].cpu())
+        c = payload["carry"]
+        es = dict(c["env_state"])
+        es["phys"] = PhysState(**es["phys"])
+        return IterationCarry(env_state=EnvState(**es), obs=c["obs"], critic_obs=c["critic_obs"])
+
+    def inference_policy(self) -> Callable:
+        """The deterministic actor: obs -> act_mean(obs)."""
+        net = self.net
+
+        @torch.no_grad()
+        def policy(obs):
+            return net.act_mean(obs)
+
+        return policy

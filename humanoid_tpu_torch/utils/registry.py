@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+from datetime import datetime
+from typing import Dict, Optional, Tuple, Union
 
 from ..assets import write_xbot_topology_urdf
 from ..config.structs import (AlgorithmCfg, CommandRangesCfg, CommandsCfg, DomainRandCfg,
@@ -42,6 +43,11 @@ from ..config.structs import (AlgorithmCfg, CommandRangesCfg, CommandsCfg, Domai
                               XBotLCfgPPO)
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+# runs go to <LOG_ROOT>/<experiment_name>/<%b%d_%H-%M-%S>_<run_name>/
+LOG_ROOT = os.environ.get(
+    "HUMANOID_TPU_LOGS",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                 "logs"))
 
 _PGS = SimCfg(contact_model="pgs", pgs_freeze_prep=True, pgs_iterations=6)
 # the extended domain randomization and the tracking-biased rewards
@@ -131,16 +137,28 @@ def get_cfgs(name: str) -> Tuple[XBotLCfg, XBotLCfgPPO]:
 
 
 def update_cfg_from_args(env_cfg: XBotLCfg, train_cfg: XBotLCfgPPO, args):
-    """The CLI override whitelist: num_envs, seed, max_iterations and the
-    contact model."""
+    """The reference's CLI override whitelist: num_envs, seed,
+    max_iterations, experiment_name, run_name, resume, the terrain's mesh
+    type and the contact model."""
+    def runner(**kw):
+        return train_cfg.replace(runner=dataclasses.replace(train_cfg.runner, **kw))
+
     if getattr(args, "num_envs", None):
         env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=args.num_envs))
     if getattr(args, "seed", None) is not None:
         env_cfg = env_cfg.replace(seed=args.seed)
         train_cfg = train_cfg.replace(seed=args.seed)
     if getattr(args, "max_iterations", None):
-        train_cfg = train_cfg.replace(runner=dataclasses.replace(
-            train_cfg.runner, max_iterations=args.max_iterations))
+        train_cfg = runner(max_iterations=args.max_iterations)
+    if getattr(args, "experiment_name", None):
+        train_cfg = runner(experiment_name=args.experiment_name)
+    if getattr(args, "run_name", None):
+        train_cfg = runner(run_name=args.run_name)
+    if getattr(args, "resume", False):
+        train_cfg = runner(resume=True)
+    if getattr(args, "terrain", None):
+        env_cfg = env_cfg.replace(terrain=dataclasses.replace(env_cfg.terrain,
+                                                              mesh_type=args.terrain))
     if getattr(args, "contact", None):
         env_cfg = env_cfg.replace(sim=dataclasses.replace(env_cfg.sim, contact_model=args.contact))
     return env_cfg, train_cfg
@@ -180,7 +198,20 @@ def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None,
     return build_env(env_cfg, urdf or default_urdf(), device), env_cfg, train_cfg
 
 
-def make_alg_runner(env, train_cfg: XBotLCfgPPO):
+def run_dir(train_cfg: XBotLCfgPPO, log_root: Optional[str] = None) -> str:
+    """<log_root or LOG_ROOT>/<experiment_name>/<%b%d_%H-%M-%S>_<run_name>,
+    the reference's run directory (created when the run first writes)."""
+    leaf = datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name
+    return os.path.join(log_root or LOG_ROOT, train_cfg.runner.experiment_name, leaf)
+
+
+def make_alg_runner(env, train_cfg: XBotLCfgPPO, log_root: Union[str, bool, None] = None,
+                    log_dir: Optional[str] = None):
+    """The runner of `env`, saving into `log_dir`, or else into a new run
+    directory under `log_root` (default LOG_ROOT); `log_root=False` gives a
+    runner that writes nothing."""
     from ..algo.runner import OnPolicyRunner
 
-    return OnPolicyRunner(env, train_cfg)
+    if log_dir is None and log_root is not False:
+        log_dir = run_dir(train_cfg, log_root)
+    return OnPolicyRunner(env, train_cfg, log_dir=log_dir)

@@ -200,25 +200,6 @@ def test_train_iteration_runs_at_small_size():
 
 
 
-@pytest.mark.parametrize("resume", [True, False])
-def test_runner_refuses_resume_until_checkpoints_are_ported(resume):
-    """The reference resumes from its checkpoint; the port has none yet, so
-    it refuses `runner.resume` instead of training from scratch."""
-    from humanoid_tpu_torch.utils import registry
-
-    env_cfg, train_cfg = registry.get_cfgs("humanoid_ppo")
-    env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=8))
-    env = XBotLEnv(env_cfg, registry.default_urdf(), device="cpu")
-    train_cfg = train_cfg.replace(runner=dataclasses.replace(train_cfg.runner, resume=resume))
-    if resume:
-        with pytest.raises(NotImplementedError, match="checkpoints are not ported"):
-            OnPolicyRunner(env, train_cfg)
-        with pytest.raises(NotImplementedError, match="checkpoints are not ported"):
-            registry.make_alg_runner(env, train_cfg)
-    else:
-        runner = registry.make_alg_runner(env, train_cfg)
-        assert isinstance(runner, OnPolicyRunner) and runner.iteration == 0
-
 PORTED_TASKS = ["humanoid_ppo", "humanoid_ppo_8k", "humanoid_ppo_envelope", "humanoid_ppo_omni",
                 "humanoid_ppo_penalty", "humanoid_ppo_pgs", "humanoid_ppo_robust",
                 "humanoid_ppo_sym", "humanoid_ppo_terrain", "humanoid_ppo_transfer",

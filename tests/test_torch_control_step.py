@@ -282,6 +282,31 @@ def test_kernel_source_matches_plain_on_host(setup, host_build, instance, warm):
         assert du >= 1e-2 or dpos >= 1e-5 or dff >= 0.01, (du, dpos, dff)
 
 
+TEAMS_PER_BLOCK = 8      # envs per block of both team kernels (PGS and penalty)
+
+
+@pytest.mark.parametrize("n,contact", [(1, "cold"), (1, "warm"), (1, "penalty"), (5, "cold"),
+                                       (5, "penalty")])
+def test_kernel_source_at_small_env_counts_matches_plain_on_host(setup, host_build, n,
+                                                                 contact):
+    """`play`'s env counts: 1 env (its block's other 7 teams are tail
+    teams) and 5 (the last block of 37 envs: 5 envs, 3 tail teams). The
+    team step with one lane, the tail teams run after the envs and behind
+    the NaN guard, against the plain version."""
+    k = {"cold": setup["kernel"], "warm": _warm_kernel(setup),
+         "penalty": ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(), None,
+                                      0.001)}[contact]
+    pack = setup["pack"][:, :n].contiguous()
+    masses, friction, targets = (x[:n].contiguous() for x in _torch_args(setup))
+    for instance in ((10, True, True), (1, False, False)):
+        out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance,
+                             tail=TEAMS_PER_BLOCK - n % TEAMS_PER_BLOCK)
+        b, db = k.plain(pack, masses, friction, targets, *instance)
+        assert out.shape == (pack.shape[0], n)
+        _assert_within_kernel_bounds(out, hd.foot_forces, b, db.foot_forces, setup["weight"])
+        np.testing.assert_allclose(hd.tau.numpy(), db.tau.numpy(), atol=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # the optional inputs: gains, body, planes
 

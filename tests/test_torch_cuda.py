@@ -374,12 +374,12 @@ TEAM_CASES = {   # instance, contact model (cold or warm PGS, penalty), gains/bo
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 4093])
+@pytest.mark.parametrize("n", [1, 37, 256, 4093])
 @pytest.mark.parametrize("case", list(TEAM_CASES))
 def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
     """The team kernels (PGS cold and warm, penalty) vs the plain version,
-    at a count of envs that fills their blocks and one that leaves tail
-    teams in the last block (4093): shipping, exact, unfrozen prep or
+    at a count of envs that fills their blocks and ones that leave tail
+    teams in the last block (4093; 37, and 1 as `play` runs): shipping, exact, unfrozen prep or
     factor, and with random gains and bodies on a ramp. A tail team that
     wrote its env N + j would overwrite env j's next output row; two
     launches give the same bits."""

@@ -462,12 +462,12 @@ def test_reset_origins_and_jitter(urdf):
     assert s.terrain_planes.shape == (n, 27) and bool(torch.isfinite(s.terrain_planes).all())
 
 
-def test_train_cli_terrain_one_iteration_on_cpu():
+def test_train_cli_terrain_one_iteration_on_cpu(tmp_path):
     from humanoid_tpu_torch.scripts import train
 
     seen = []
     runner, carry = train.main(["--task", TASK, "--device", "cpu", "--num-envs", "8",
-                                "--max-iterations", "1"],
+                                "--max-iterations", "1", "--log-root", str(tmp_path)],
                                log_fn=lambda it, m, fps: seen.append(m))
     assert len(seen) == 1 and carry.critic_obs.shape == (8, 780) and carry.obs.shape == (8, 705)
     assert seen[0].kernel_launches == 0 and seen[0].sampler_launches == 0   # plain on the CPU
