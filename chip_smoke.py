@@ -36,6 +36,18 @@ pair and policy.onnx within 1e-5 of the float32 actor; the bf16 actor's
 gap printed), holds B1 against its plain version at 1 and 37 envs, and
 times save, save_state, load and load_state. Every run writes its
 checkpoints and logs into a temporary directory, removed at the end.
+The 18-dof phases drive the d11_ppo robot (nj 18, nb 19, nv 24):
+`d11_control` holds B1 against its plain version at 4096 envs on settled
+18-dof robots pressed 1 mm in (shipping, exact, warm, with gains and body,
+penalty; the settled median bound; the same bits on repeat) and B3-B5 at
+n = 24 on their mass matrices; `d11_train` trains d11_ppo and d12_ppo for
+3 iterations, d11_ppo on penalty contact (`--contact penalty`) for 1 and on
+the engine path for 1, with their launches per iteration checked;
+`d11_play` trains d11_ppo 1 iteration and plays it at 1 and 4096 envs
+(B1 once per step, the exports within 1e-5). `profile` runs
+`train --profile 1` on humanoid_ppo and prints the trace's five device
+ops by total time and the share of the traced rollout's wall time in which
+the device was busy.
 A determinism phase runs the control step's PGS and penalty instances
 several times on the same inputs and requires identical outputs (a missing
 sync between the lanes of a team shows as run-to-run differences). Then it
@@ -56,6 +68,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -99,8 +112,10 @@ REPEATS = 5                      # runs of each instance in the determinism phas
 PLAY_STEPS = 300                 # the reference play's default rollout
 SMALL_N = (1, 37)                # B1 vs plain where play runs it: 1 env, a tail block
 TOL_EXPORT = 1e-5                # the exports against the float32 actor
-PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism", "train",
-          "checkpoint", "time")
+PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism",
+          "d11_control", "train", "d11_train", "checkpoint", "d11_play", "profile", "time")
+D11_TASK = "d11_ppo"             # the 18-dof robot: nj 18, nb 19, nv 24
+PROFILED_ITERATIONS = 1          # the profile phase: train --profile 1 on humanoid_ppo
 
 
 def emit(phase, **fields):
@@ -518,6 +533,61 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def play_and_check(play, task, net, runs, root, iteration):
+    """`scripts.play.main` on the latest checkpoint of `task` under `runs` (of
+    the network `net` at `iteration`) at 1 and at N envs for PLAY_STEPS
+    steps: B1 once per step, finite states, the six artifacts written, and
+    policy.npz, the TorchScript pair and policy.onnx within TOL_EXPORT of
+    the float32 actor. Returns (a summary per env count, launches by path,
+    the bf16 actor's largest gap from the export)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.deploy.npz_policy import NpzPolicy
+    from humanoid_tpu_torch.deploy.onnx_loader import load_onnx_mlp
+
+    f32 = copy.deepcopy(net).cpu()
+    f32.compute_dtype = torch.float32
+    obs = torch.as_tensor(np.random.default_rng(5).normal(size=(256, f32.actor.layers[0]
+                                                                 .in_features)),
+                          dtype=torch.float32)
+    with torch.no_grad():
+        want, want_vel = f32.act_mean(obs).numpy(), f32.estimate_vel(obs).numpy()
+        bf16_gap = (net.act_mean(obs.to(DEVICE)).cpu().numpy() - want)
+    plays, launches = {}, {}
+    for n in (1, N):   # play's default env count, and training's
+        res = play.main(["--task", task, "--num-envs", str(n), "--steps", str(PLAY_STEPS),
+                         "--log-root", runs, "--out-dir", os.path.join(root, f"play_{task}_{n}"),
+                         "--device", DEVICE])
+        d = res["out_dir"]
+        artifacts = ["policy.npz", "policy_1.pt", "base_lin_vel.pt", "policy.onnx",
+                     "openloop_action.npz", "eval_states.npz"]
+        with torch.no_grad():
+            err = {"npz_actor": np.abs(NpzPolicy(res["npz"])(obs.numpy()) - want).max(),
+                   "npz_vel": np.abs(NpzPolicy(res["npz"], "vel")(obs.numpy()) - want_vel).max(),
+                   "onnx": np.abs(load_onnx_mlp(os.path.join(d, "policy.onnx"))(obs.numpy())
+                                  - want).max(),
+                   "torchscript_actor": np.abs(torch.jit.load(os.path.join(d, "policy_1.pt"))(
+                       obs).numpy() - want).max(),
+                   "torchscript_vel": np.abs(torch.jit.load(os.path.join(d, "base_lin_vel.pt"))(
+                       obs).numpy() - want_vel).max()}
+        plays[n] = {"task": task, "envs": n, "steps": res["steps"], "launches": res["launches"],
+                    "steps_per_s": res["steps_per_s"], "rollout_s": res["rollout_s"],
+                    "final_z": res["final_z"], "finite": res["finite"],
+                    "artifacts": {a: os.path.isfile(os.path.join(d, a)) for a in artifacts},
+                    "max_abs_err_vs_float32_actor": {k: float(v) for k, v in err.items()},
+                    "iteration": int(np.load(res["npz"])["meta_iteration"])}
+        prefix = "play" if task == "humanoid_ppo" else f"play {task}"
+        launches[f"{prefix} {n} env" + ("s" if n > 1 else "")] = res["launches"]
+        if res["launches"]["control_step_kernel"] != res["steps"] or not res["finite"] \
+                or not all(plays[n]["artifacts"].values()) or plays[n]["iteration"] != iteration \
+                or not max(err.values()) <= TOL_EXPORT:
+            raise AssertionError(f"play {task} at {n} envs: {plays[n]}")
+    return list(plays.values()), launches, float(np.abs(bf16_gap).max())
+
+
 def checkpoint_phase(train, play, registry, probe, model, inputs, root):
     """humanoid_ppo at N envs through the entry points a user calls: train
     2 iterations with --full-state, load model_2 into a new runner (the same
@@ -528,14 +598,9 @@ def checkpoint_phase(train, play, registry, probe, model, inputs, root):
     control phase's comparisons on the first envs of `inputs`) and its
     device time there, and the seconds and bytes of save, save_state, load
     and load_state. Returns (summary, launches by path)."""
-    import copy
-
-    import numpy as np
     import torch
 
     from humanoid_tpu_torch.algo.runner import OnPolicyRunner
-    from humanoid_tpu_torch.deploy.npz_policy import NpzPolicy
-    from humanoid_tpu_torch.deploy.onnx_loader import load_onnx_mlp
     from humanoid_tpu_torch.utils.checkpoint import get_load_path
 
     task, S = "humanoid_ppo", STEPS_PER_ITERATION
@@ -628,44 +693,9 @@ def checkpoint_phase(train, play, registry, probe, model, inputs, root):
     del unbroken
 
     # 4. play the resumed run (model_3) at 1 and at N envs
-    f32 = copy.deepcopy(resumed.net).cpu()
-    f32.compute_dtype = torch.float32
-    obs = torch.as_tensor(np.random.default_rng(5).normal(size=(256, f32.actor.layers[0]
-                                                                 .in_features)),
-                          dtype=torch.float32)
-    with torch.no_grad():
-        want, want_vel = f32.act_mean(obs).numpy(), f32.estimate_vel(obs).numpy()
-        bf16_gap = (resumed.net.act_mean(obs.to(DEVICE)).cpu().numpy() - want)
-    plays = {}
-    for n in (1, N):   # play's default env count, and training's
-        res = play.main(["--task", task, "--num-envs", str(n), "--steps", str(PLAY_STEPS),
-                         "--log-root", runs, "--out-dir", os.path.join(root, f"play_{n}"),
-                         "--device", DEVICE])
-        d = res["out_dir"]
-        artifacts = ["policy.npz", "policy_1.pt", "base_lin_vel.pt", "policy.onnx",
-                     "openloop_action.npz", "eval_states.npz"]
-        with torch.no_grad():
-            err = {"npz_actor": np.abs(NpzPolicy(res["npz"])(obs.numpy()) - want).max(),
-                   "npz_vel": np.abs(NpzPolicy(res["npz"], "vel")(obs.numpy()) - want_vel).max(),
-                   "onnx": np.abs(load_onnx_mlp(os.path.join(d, "policy.onnx"))(obs.numpy())
-                                  - want).max(),
-                   "torchscript_actor": np.abs(torch.jit.load(os.path.join(d, "policy_1.pt"))(
-                       obs).numpy() - want).max(),
-                   "torchscript_vel": np.abs(torch.jit.load(os.path.join(d, "base_lin_vel.pt"))(
-                       obs).numpy() - want_vel).max()}
-        plays[n] = {"envs": n, "steps": res["steps"], "launches": res["launches"],
-                    "steps_per_s": res["steps_per_s"], "rollout_s": res["rollout_s"],
-                    "final_z": res["final_z"], "finite": res["finite"],
-                    "artifacts": {a: os.path.isfile(os.path.join(d, a)) for a in artifacts},
-                    "max_abs_err_vs_float32_actor": {k: float(v) for k, v in err.items()},
-                    "iteration": int(np.load(res["npz"])["meta_iteration"])}
-        launches[f"play {n} env" + ("s" if n > 1 else "")] = res["launches"]
-        if res["launches"]["control_step_kernel"] != res["steps"] or not res["finite"] \
-                or not all(plays[n]["artifacts"].values()) or plays[n]["iteration"] != 3 \
-                or not max(err.values()) <= TOL_EXPORT:
-            raise AssertionError(f"checkpoint: play at {n} envs: {plays[n]}")
-    out["play"] = list(plays.values())
-    out["bf16_actor_max_abs_gap_vs_export"] = float(np.abs(bf16_gap).max())
+    out["play"], play_launches, out["bf16_actor_max_abs_gap_vs_export"] = play_and_check(
+        play, task, resumed.net, runs, root, 3)
+    launches.update(play_launches)
     del resumed
 
     # 5. B1 against its plain version where play runs it: 1 env, and 37 (a tail block)
@@ -685,6 +715,37 @@ def checkpoint_phase(train, play, registry, probe, model, inputs, root):
                 raise AssertionError(f"B1 {name} at {n} envs: other bits on repeat")
     out["b1_small_n_vs_plain"] = small
     return out, launches
+
+
+def trace_summary(path, top=5):
+    """The device ops of a torch.profiler trace (kernels, copies, memsets)
+    with the most total time, and the share of the `rollout` span's wall
+    time in which the device ran any of them (their intervals' union)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name") == "rollout"]
+    totals = {}
+    for e in device:
+        totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"]
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+    out = {"device_ops": [{"name": n[:120], "total_ms": t / 1e3,
+                           "calls": sum(e["name"] == n for e in device)} for n, t in ranked],
+           "device_events": len(device), "rollout_spans": len(spans)}
+    if len(spans) != 1:
+        out["device_busy_share_of_rollout"] = None
+        return out
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    busy, end = 0.0, t0
+    for a, b in sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in device):
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    out.update(rollout_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
+               device_busy_share_of_rollout=busy / (t1 - t0))
+    return out
 
 
 def parse_phases(argv):
@@ -939,6 +1000,65 @@ def run(phases, log_root):
             raise AssertionError(f"the control step gave different outputs on the same inputs: "
                                  f"{same}")
 
+    # ---- 3g. the 18-dof robot (d11_ppo): B1 against its plain version at
+    # nj = 18 on settled robots pressed 1 mm in (PGS, warm, exact, with gains
+    # and body, penalty), the same bits on repeat, and B3-B5 at n = 24 on
+    # the settled 18-dof mass matrices ----
+    if phases & {"d11_control", "time"}:
+        env18, cfg18, _ = registry.make_env(D11_TASK, device=DEVICE)
+        model18, k18 = env18.model, env18.physics
+        probe18 = ControlStepKernel(model18, *k18.gains, k18.contact_params, k18.pgs_params,
+                                    k18.dt)
+        pprobe18 = ControlStepKernel(model18, *probe18.gains, probe18.contact_params, None,
+                                     probe18.dt)
+        wprobe18 = ControlStepKernel(model18, *probe18.gains, probe18.contact_params,
+                                     probe18.pgs_params._replace(warm_start=True), probe18.dt)
+        del env18, k18
+        settled18 = settle(probe18, model18, np.asarray(cfg18.init_state.default_joint_angles))
+        on_flat18 = pressed(settled18)
+        gains18, body18, offsets18 = random_extras(model18, *probe18.gains[:2])
+        flat18_offsets = on_flat18[:3] + ((on_flat18[3] + offsets18).contiguous(),)
+        crba_M18, crba_b18 = mass_matrices(model18, settled18)
+        lprobe18 = linalg.CholeskyKernels()
+    if "d11_control" in phases:
+        runs18 = {
+            "shipping": (probe18, on_flat18, (10, True, True), {}),
+            "exact": (probe18, on_flat18, (1, False, False), {}),
+            "warm": (wprobe18, on_flat18, (10, True, True), {}),
+            "gains_body": (probe18, flat18_offsets, (10, True, True),
+                           {"gains": gains18, "body": body18}),
+            "penalty": (pprobe18, on_flat18, (10, True, True), {}),
+        }
+        d11 = {name: compare(k, model18, inputs, *args, **kw)
+               for name, (k, inputs, args, kw) in runs18.items()}
+        d11_settled = {name: compare(k, model18, settled18, *runs18[name][2])
+                       for name, k in (("shipping", probe18), ("penalty", pprobe18))}
+        same18 = {}
+        for name, (k, inputs, args, kw) in runs18.items():
+            first = k(*inputs, *args, **kw)
+            same18[name] = [torch.equal(first[0], out[0])
+                            and all(torch.equal(x, y) for x, y in zip(first[1], out[1]))
+                            for out in (k(*inputs, *args, **kw) for _ in range(REPEATS - 1))]
+        linalg18 = compare_linalg(lprobe18, crba_M18, crba_b18, fixed=TOL_SETTLED)
+        emit("d11_control", task=D11_TASK, envs=N, nj=model18.nj, nb=model18.nb, nv=model18.nv,
+             design={"pgs": probe18.design(), "penalty": pprobe18.design()},
+             tolerance=tolerance, pressed_1mm=d11, settled=d11_settled, repeats=REPEATS,
+             identical=same18, linalg_n24=linalg18)
+        for name, r in d11.items():
+            check_within(f"d11 {name} (feet pressed 1 mm)", r)
+        for name, r in d11_settled.items():
+            if not r["finite"] or r["median_du"] >= 1e-3:
+                raise AssertionError(f"d11 {name} (settled): median per-env |du| too large: {r}")
+        if not all(all(v) for v in same18.values()):
+            raise AssertionError(f"d11: other outputs on the same inputs: {same18}")
+        if linalg18["envs_over_bounds"] or not linalg18["finite"] or not linalg18["upper_zero"] \
+                or not all(linalg18["nan_on_non_spd"].values()) \
+                or not all(all(v.values()) for v in linalg18["same_bits"].values()):
+            raise AssertionError(f"d11 linalg (n = 24): a kernel disagrees with its plain "
+                                 f"version: {linalg18}")
+        results.update({f"d11_{k}": v for k, v in d11.items()})
+        linalg18_err = linalg18["max_abs_err"]
+
     # ---- 4. the main paths: every physics path, each with its kernels ----
     S = STEPS_PER_ITERATION
     D = env_cfg.control.decimation
@@ -946,40 +1066,53 @@ def run(phases, log_root):
             "apply_launches": 0, "solve_launches": 0}
     engine_pgs = {"use_pallas_substep": False}
     paths = [
-        ("humanoid_ppo", "humanoid_ppo", None, ITERATIONS, {"kernel_launches": S}),
+        ("humanoid_ppo", "humanoid_ppo", None, ITERATIONS, {"kernel_launches": S}, ()),
         ("humanoid_ppo_terrain", "humanoid_ppo_terrain", None, ITERATIONS,
-         {"kernel_launches": S, "sampler_launches": S}),
+         {"kernel_launches": S, "sampler_launches": S}, ()),
         ("humanoid_ppo_penalty", "humanoid_ppo_penalty", None, ITERATIONS,
-         {"kernel_launches": S}),
-        ("humanoid_ppo warm6", "humanoid_ppo", WARM6, ITERATIONS, {"kernel_launches": S}),
-        ("humanoid_ppo_robust", "humanoid_ppo_robust", None, ITERATIONS, {"kernel_launches": S}),
+         {"kernel_launches": S}, ()),
+        ("humanoid_ppo warm6", "humanoid_ppo", WARM6, ITERATIONS, {"kernel_launches": S}, ()),
+        ("humanoid_ppo_robust", "humanoid_ppo_robust", None, ITERATIONS,
+         {"kernel_launches": S}, ()),
         ("humanoid_ppo_envelope", "humanoid_ppo_envelope", None, ITERATIONS,
-         {"kernel_launches": S}),
+         {"kernel_launches": S}, ()),
         ("humanoid_ppo_trimesh", "humanoid_ppo_trimesh", None, 1,
-         {"kernel_launches": S, "sampler_launches": S}),
-        ("humanoid_ppo_8k", "humanoid_ppo_8k", None, 1, {"kernel_launches": S}),
+         {"kernel_launches": S, "sampler_launches": S}, ()),
+        ("humanoid_ppo_8k", "humanoid_ppo_8k", None, 1, {"kernel_launches": S}, ()),
         ("humanoid_ppo engine", "humanoid_ppo", engine_pgs, 1,
-         {"factor_launches": S, "apply_launches": S * D}),
+         {"factor_launches": S, "apply_launches": S * D}, ()),
         ("humanoid_ppo_terrain engine", "humanoid_ppo_terrain", engine_pgs, 1,
-         {"sampler_launches": S, "factor_launches": S, "apply_launches": S * D}),
+         {"sampler_launches": S, "factor_launches": S, "apply_launches": S * D}, ()),
         ("humanoid_ppo_penalty engine unfrozen", "humanoid_ppo_penalty",
          {"use_pallas_substep": False, "freeze_mass_matrix": False}, 1,
-         {"solve_launches": S * D}),
+         {"solve_launches": S * D}, ()),
+    ]
+    # the 18-dof family: d11_ppo and d12_ppo (B1 with gains and body) on the
+    # fused kernel, d11_ppo on penalty contact through --contact, and on the
+    # engine path (B3 and B4 at n = 24)
+    d11_paths = [
+        ("d11_ppo", D11_TASK, None, ITERATIONS, {"kernel_launches": S}, ()),
+        ("d12_ppo", "d12_ppo", None, ITERATIONS, {"kernel_launches": S}, ()),
+        ("d11_ppo penalty", D11_TASK, None, 1, {"kernel_launches": S}, ("--contact", "penalty")),
+        ("d11_ppo engine", D11_TASK, engine_pgs, 1,
+         {"factor_launches": S, "apply_launches": S * D}, ()),
     ]
     launches, summaries = {}, {}
-    for path, task, sim, iterations, nonzero in (paths if "train" in phases else ()):
+    todo = (paths if "train" in phases else []) + (d11_paths if "d11_train" in phases else [])
+    for path, task, sim, iterations, nonzero, argv in todo:
         t_path = time.perf_counter()
         cfg, _ = registry.get_cfgs(task)
         n_envs = N * cfg.env.num_envs // 4096      # the task's count: humanoid_ppo_8k 2 N
         runner, carry, rows, peak = train_phase(train, registry, task, iterations,
-                                                "train_iteration", log_root, sim, n_envs)
+                                                "train_iteration", log_root, sim, n_envs, argv)
         expect = {**zero, **nonzero}
         checks = check_training(path, runner, carry, rows, cfg, iterations, expect, n_envs)
         env_ = runner.env
         launches[path] = play.kernel_launches(env_)
         steady = rows[1:] if len(rows) > 1 else rows
         summaries[path] = {
-            "task": task, "sim": sim or {}, "envs": n_envs, "iterations": len(rows),
+            "task": task, "sim": sim or {}, "argv": list(argv), "envs": n_envs,
+            "iterations": len(rows),
             "launches": launches[path],
             "warm_start": bool(env_.physics.pgs_params is not None
                                and env_.physics.pgs_params.warm_start),
@@ -1010,6 +1143,48 @@ def run(phases, log_root):
         emit("checkpoint", envs=N, task="humanoid_ppo", launches=ckpt_launches,
              wall_s=summaries["checkpoint"]["wall_s"], **ckpt)
 
+    # ---- 4c. the 18-dof policy exported and played: d11_ppo trained one
+    # iteration, then `scripts.play.main` at 1 and at N envs ----
+    if "d11_play" in phases:
+        t_path = time.perf_counter()
+        runs = os.path.join(log_root, "d11_play")
+        trained, carry, rows, _ = train_phase(train, registry, D11_TASK, 1, "d11_play_train",
+                                              runs, n_envs=N)
+        check_training(D11_TASK, trained, carry, rows, registry.get_cfgs(D11_TASK)[0], 1,
+                       {**zero, "kernel_launches": S}, N)
+        played, play_launches, bf16_gap = play_and_check(play, D11_TASK, trained.net, runs,
+                                                         log_root, 1)
+        launches.update(play_launches)
+        summaries["d11_play"] = {"wall_s": time.perf_counter() - t_path}
+        emit("d11_play", task=D11_TASK, play=played, bf16_actor_max_abs_gap_vs_export=bf16_gap,
+             wall_s=summaries["d11_play"]["wall_s"])
+        del trained, carry
+
+    # ---- 4d. a torch.profiler trace of one humanoid_ppo iteration through
+    # `train --profile 1`: the device's busiest ops and its busy share of the
+    # traced rollout ----
+    if "profile" in phases:
+        t_path = time.perf_counter()
+        profiled, carry, rows, _ = train_phase(
+            train, registry, "humanoid_ppo", 1 + PROFILED_ITERATIONS, "profile_train",
+            os.path.join(log_root, "profile"), n_envs=N,
+            argv=("--profile", str(PROFILED_ITERATIONS)))
+        check_training("humanoid_ppo", profiled, carry, rows, env_cfg, 1 + PROFILED_ITERATIONS,
+                       {**zero, "kernel_launches": S}, N)
+        traces = glob.glob(os.path.join(profiled.log_dir, "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile: expected one trace in {profiled.log_dir}: {traces}")
+        prof = trace_summary(traces[0])
+        summaries["profile"] = {"wall_s": time.perf_counter() - t_path}
+        emit("profile", task="humanoid_ppo", envs=N, iterations_traced=PROFILED_ITERATIONS,
+             trace_bytes=os.path.getsize(traces[0]),
+             rollout_s_traced=rows[-1]["rollout_s"], rollout_s_untraced=rows[0]["rollout_s"],
+             wall_s=summaries["profile"]["wall_s"], **prof)
+        share = prof["device_busy_share_of_rollout"]
+        if not prof["device_ops"] or share is None or not 0.0 < share <= 1.0:
+            raise AssertionError(f"profile: the trace shows no device work in the rollout: {prof}")
+        del profiled, carry
+
     # ---- 5. kernel times against their bounds ----
     timing = {}
     if "time" in phases:
@@ -1025,6 +1200,11 @@ def run(phases, log_root):
                        {"gains": gains, "body": body, "planes": planes}),
             "penalty": (pprobe, settled, (10, True, True), {}),
             "warm": (wprobe, settled, (10, True, True), {}),
+            # nj = 18: shipping, with the gains and body that d12_ppo feeds, penalty
+            "d11_shipping": (probe18, settled18, (10, True, True), {}),
+            "d11_gains_body": (probe18, settled18[:3] + ((settled18[3] + offsets18).contiguous(),),
+                               (10, True, True), {"gains": gains18, "body": body18}),
+            "d11_penalty": (pprobe18, settled18, (10, True, True), {}),
         }
         for name, (k, inputs, args, kw) in instances.items():
             def run_kernel():
@@ -1041,12 +1221,12 @@ def run(phases, log_root):
             plain_ms = cuda_ms(run_plain, 3)
             flags = {f: f in kw for f in ("gains", "body", "planes")}
             pgs = k.pgs_params is not None
-            ops = operations_per_env(model, args[0], args[1], args[2],
+            ops = operations_per_env(k.model, args[0], args[1], args[2],
                                      k.pgs_params.iterations if pgs else 0, pgs=pgs, **flags) * N
             timing[name] = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                            "design": k.design(),
+                            "nj": k.model.nj, "design": k.design(),
                             "ptxas": ptxas.get(k.kernel_name()),
-                            **bound(ops, launch_bytes(model, N, **flags))}
+                            **bound(ops, launch_bytes(k.model, N, **flags))}
             emit(f"{name}_time", launches_timed=TIMED_LAUNCHES, **timing[name])
         # the warm and the shipping instance in turns (shipping, warm, warm,
         # shipping): does the carry cost time?
@@ -1078,36 +1258,43 @@ def run(phases, log_root):
                                      sample_bytes(n_scan, n_con, cells))}
         emit("sampler_time", launches_timed=TIMED_SAMPLES, **timing["sampler"])
 
-    if "time" in phases and "linalg" in phases:
-        # the Cholesky kernels on the settled robots' mass matrices, beside
-        # the plain versions and the library calls (timed here only; the port
-        # never calls them)
-        n = model.nv
-        L_crba = linalg.chol_factor_unrolled(crba_M)
+    def time_linalg(chol, M, b, names, suffix=""):
+        """B3-B5 (those in `names`) on M, b beside their plain versions and
+        the library calls (timed here only; the port never calls them)."""
+        n = M.shape[-1]
+        L = linalg.chol_factor_unrolled(M)
         calls = {
-            "chol_factor": (lambda: lprobe.factor_spd_batch(crba_M),
-                            lambda: linalg.chol_factor_unrolled(crba_M),
-                            lambda: torch.linalg.cholesky_ex(crba_M), "torch.linalg.cholesky_ex"),
-            "chol_apply": (lambda: lprobe.apply_spd_batch(L_crba, crba_b),
-                           lambda: linalg.chol_apply_unrolled(L_crba, crba_b),
-                           lambda: torch.cholesky_solve(crba_b[..., None], L_crba),
+            "chol_factor": (lambda: chol.factor_spd_batch(M),
+                            lambda: linalg.chol_factor_unrolled(M),
+                            lambda: torch.linalg.cholesky_ex(M), "torch.linalg.cholesky_ex"),
+            "chol_apply": (lambda: chol.apply_spd_batch(L, b),
+                           lambda: linalg.chol_apply_unrolled(L, b),
+                           lambda: torch.cholesky_solve(b[..., None], L),
                            "torch.cholesky_solve"),
-            "chol_solve": (lambda: lprobe.solve_spd_batch(crba_M, crba_b),
-                           lambda: linalg.chol_solve_unrolled(crba_M, crba_b),
-                           lambda: torch.cholesky_solve(crba_b[..., None],
-                                                        torch.linalg.cholesky_ex(crba_M).L),
+            "chol_solve": (lambda: chol.solve_spd_batch(M, b),
+                           lambda: linalg.chol_solve_unrolled(M, b),
+                           lambda: torch.cholesky_solve(b[..., None],
+                                                        torch.linalg.cholesky_ex(M).L),
                            "torch.linalg.cholesky_ex then torch.cholesky_solve"),
         }
-        for name, (run_k, run_p, run_lib, lib_name) in calls.items():
+        for name in names:
+            run_k, run_p, run_lib, lib_name = calls[name]
             for fn in (run_k, run_p, run_lib):
                 fn()
-            timing[name] = {"ms": graph_ms(run_k, TIMED_LINALG),
-                            "eager_ms": cuda_ms(run_k, TIMED_LINALG), "plain_ms": cuda_ms(run_p, 10),
-                            "library_ms": cuda_ms(run_lib, TIMED_LINALG), "library": lib_name,
-                            "design": lprobe.design(name), "ptxas": ptxas.get(f"{name}_kernel"),
-                            **bound(linalg.operations_per_env(name, n) * N,
-                                    linalg.bytes_per_env(name, n) * N)}
-            emit(f"{name}_time", launches_timed=TIMED_LINALG, n=n, **timing[name])
+            timing[name + suffix] = {
+                "ms": graph_ms(run_k, TIMED_LINALG), "eager_ms": cuda_ms(run_k, TIMED_LINALG),
+                "plain_ms": cuda_ms(run_p, 10), "library_ms": cuda_ms(run_lib, TIMED_LINALG),
+                "library": lib_name, "n": n, "design": chol.design(name),
+                "ptxas": ptxas.get(f"{name}_kernel"),
+                **bound(linalg.operations_per_env(name, n) * N, linalg.bytes_per_env(name, n) * N)}
+            emit(f"{name}{suffix}_time", launches_timed=TIMED_LINALG, **timing[name + suffix])
+
+    if "time" in phases and "linalg" in phases:
+        # on the settled 12-dof robots' mass matrices (n = 18)
+        time_linalg(lprobe, crba_M, crba_b, ("chol_factor", "chol_apply", "chol_solve"))
+    if "time" in phases:
+        # B3 and B4 at n = 24, on the settled 18-dof robots' mass matrices
+        time_linalg(lprobe18, crba_M18, crba_b18, ("chol_factor", "chol_apply"), "_n24")
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated())
     emit("paths_wall_s", **{p: v["wall_s"] for p, v in summaries.items()},
          script_s=time.perf_counter() - t_start)
@@ -1116,24 +1303,59 @@ def run(phases, log_root):
     print(smi, flush=True)
     if set(PHASES) <= phases:
         print(json.dumps(kernel_table(results, timing, launches, sampler_err, linalg_err,
-                                      sweeps, n=model.nv, design={
+                                      linalg18_err, sweeps, n=model.nv, design={
                                           "pgs": probe.design(), "penalty": pprobe.design()})),
               flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 
 
-def kernel_table(results, timing, launches, sampler_err, linalg_err, sweeps, n, design):
-    """The kernels line: one row per kernel, the control step's instances
-    inside its row."""
+def is_18dof(path):
+    """Whether a path of the launch counts runs the 18-dof robot."""
+    return path.startswith(("d11", "d12", "play d11"))
+
+
+def kernel_table(results, timing, launches, sampler_err, linalg_err, linalg18_err, sweeps, n,
+                 design):
+    """The kernels line: one row per kernel on the 12-dof robot, the control
+    step's instances inside its row, then the rows of the kernels at the
+    18-dof robot's widths (nj = 18, n = 24), with the launches of its paths."""
     def row(name, result, t, **more):
         return {"max_abs_err": result, "ms": t["ms"], "eager_ms": t["eager_ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), "instance": name, **more}
 
-    def by_path(kernel):
-        return {p: v[kernel] for p, v in launches.items()}
+    def by_path(kernel, paths18=False):
+        return {p: v[kernel] for p, v in launches.items() if is_18dof(p) == paths18}
+
+    def rows18(name, source, replaces, kernel, paths, result, t, instance):
+        per_path = {p: c for p, c in by_path(kernel, True).items() if p in paths}
+        return {"name": name, "route": "cuda", "source": f"humanoid_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(per_path.values()),
+                "launches_by_path": per_path, **row(instance, result, t)}
+
+    shipping18 = ("d11_ppo", "play d11_ppo 1 env", f"play d11_ppo {N} envs")
+    d11_rows = [
+        rows18("control_step_kernel[nj=18]", "control_step.cu",
+               "humanoid_tpu/ops/physics_kernel.py:841", "control_step_kernel", shipping18,
+               results["d11_shipping"]["max_abs_err"], timing["d11_shipping"],
+               f"nj=18 decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps}"),
+        rows18("control_step_kernel[nj=18, gains body]", "control_step.cu",
+               "humanoid_tpu/ops/physics_kernel.py:841", "control_step_kernel", ("d12_ppo",),
+               results["d11_gains_body"]["max_abs_err"], timing["d11_gains_body"],
+               f"nj=18 decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps} gains body"),
+        rows18("control_step_kernel[nj=18, penalty]", "control_step.cu",
+               "humanoid_tpu/ops/physics_kernel.py:719", "control_step_kernel",
+               ("d11_ppo penalty",), results["d11_penalty"]["max_abs_err"],
+               timing["d11_penalty"], "nj=18 pgs=0 decimation=10 freeze=1"),
+        rows18("chol_factor_kernel[n=24]", "linalg.cu", "humanoid_tpu/ops/linalg.py:144",
+               "chol_factor_kernel", ("d11_ppo engine",), linalg18_err["factor"],
+               timing["chol_factor_n24"], f"n=24, {N} envs"),
+        rows18("chol_apply_kernel[n=24]", "linalg.cu", "humanoid_tpu/ops/linalg.py:165",
+               "chol_apply_kernel", ("d11_ppo engine",), linalg18_err["apply"],
+               timing["chol_apply_n24"], f"n=24, {N} envs"),
+    ]
 
     cs_launches = by_path("control_step_kernel")
     linalg_rows = [
@@ -1180,6 +1402,7 @@ def kernel_table(results, timing, launches, sampler_err, linalg_err, sweeps, n, 
             **row("187 scan + 9 contact points per env", sampler_err, timing["sampler"]),
         },
         *linalg_rows,
+        *d11_rows,
     ]}
 
 

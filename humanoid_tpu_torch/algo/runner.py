@@ -150,23 +150,25 @@ class OnPolicyRunner:
             ep_stats = torch.zeros(3, device=dev)    # count, length sum, failures
             rew_terms = torch.zeros(n_rew, device=dev)
             obs, cobs = carry.obs, carry.critic_obs
-            for t in range(T):
-                mean = net.act_mean(obs)
-                action = mean + std * torch.randn(mean.shape, generator=self.gen, device=dev)
-                obs_buf[t] = obs
-                cobs_buf[t] = cobs
-                act_buf[t] = action
-                mean_buf[t] = mean
-                logp_buf[t] = log_prob(mean, std, action)
-                es, out = env.step(es, action, self.gen)
-                rew_buf[t] = out.rew
-                done_buf[t] = out.reset.float()
-                tout_buf[t] = out.time_outs.float()
-                ep_rew += out.ep_rew_sums
-                ep_stats += torch.stack([out.ep_count, out.ep_len_sum.float(), out.ep_term_count])
-                rew_terms += out.rew_terms_mean
-                obs, cobs = out.obs, out.privileged_obs
-            self._sync()
+            with torch.profiler.record_function("rollout"):   # a span for device_trace
+                for t in range(T):
+                    mean = net.act_mean(obs)
+                    action = mean + std * torch.randn(mean.shape, generator=self.gen, device=dev)
+                    obs_buf[t] = obs
+                    cobs_buf[t] = cobs
+                    act_buf[t] = action
+                    mean_buf[t] = mean
+                    logp_buf[t] = log_prob(mean, std, action)
+                    es, out = env.step(es, action, self.gen)
+                    rew_buf[t] = out.rew
+                    done_buf[t] = out.reset.float()
+                    tout_buf[t] = out.time_outs.float()
+                    ep_rew += out.ep_rew_sums
+                    ep_stats += torch.stack([out.ep_count, out.ep_len_sum.float(),
+                                             out.ep_term_count])
+                    rew_terms += out.rew_terms_mean
+                    obs, cobs = out.obs, out.privileged_obs
+                self._sync()
             t1 = time.perf_counter()
 
             values = net.value(cobs_buf.reshape(T * N, -1)).reshape(T, N)

@@ -7,11 +7,22 @@ time from the constants below: XBot-L's topology and widths (a floating
 and order, box collision on both `*_ankle_roll_link`s) with humanoid-scale
 masses, inertias and limits. It gives the model the shipping task's full
 widths: nj=12, nb=13, nv=18, 47x15 actor and 73x3 critic observations.
+
+The 18-dof tasks (d11_ppo, d11_ppo_pgs, d12_ppo) run XBot-L with its six
+arm joints re-enabled (shoulder pitch, shoulder roll and elbow pitch per
+side), the arms first in the dof order. `write_xbot18_topology_urdf` writes
+the stand-in for it: the 12-dof stand-in plus two 3-dof arms on the base,
+their masses taken out of the base's, so that the legs carry the same
+load: nj=18, nb=19, nv=24, 65x15 actor and 97x3 critic observations.
+`make_xbot18_urdf` flips the arm joints of a real XBot-L URDF, where they
+are typed `fixed`, to `revolute`.
+
 Pass the real file with `--urdf PATH` once it is in the repository.
 """
 from __future__ import annotations
 
 import os
+import re
 
 # Actuated dof order used everywhere (the upstream MuJoCo actuator order).
 XBOT_JOINT_ORDER = (
@@ -29,7 +40,20 @@ XBOT_JOINT_ORDER = (
     "right_ankle_roll_joint",
 )
 
+# the 18-dof layout: the six arm dofs first, then the 12 leg dofs
+XBOT18_ARM_JOINTS = (
+    "left_shoulder_pitch_joint",
+    "left_shoulder_roll_joint",
+    "left_elbow_pitch_joint",
+    "right_shoulder_pitch_joint",
+    "right_shoulder_roll_joint",
+    "right_elbow_pitch_joint",
+)
+
+XBOT18_JOINT_ORDER = XBOT18_ARM_JOINTS + XBOT_JOINT_ORDER
+
 TOPOLOGY_URDF_NAME = "xbot_topology.urdf"
+TOPOLOGY18_URDF_NAME = "xbot18_topology.urdf"
 
 # base: torso with the (fixed) arms folded in
 _BASE_MASS = 19.0
@@ -53,6 +77,19 @@ _LEG = (
     ("ankle_roll_link", "ankle_roll_joint", (0.0, 0.0, -0.02), (1, 0, 0),
      -0.45, 0.45, 40.0, 12.0, 0.75, (0.22, 0.09, 0.04), (0.03, 0.0, -0.035)),
 )
+# per-arm chain of the 18-dof stand-in, rows as in _LEG. The right arm's
+# pitch axes are the left's negated and all its limits mirrored, so that
+# each right joint angle is its left twin's negated (algo/symmetry.py); the
+# elbow's range holds the 18-dof default pose of +-1.0472 rad.
+_ARM = (
+    ("shoulder_pitch_link", "shoulder_pitch_joint", (0.0, 0.20, 0.30), (0, 1, 0),
+     -2.0, 2.0, 60.0, 12.0, 1.0, (0.08, 0.08, 0.08), (0.0, 0.03, 0.0)),
+    ("shoulder_roll_link", "shoulder_roll_joint", (0.0, 0.05, 0.0), (1, 0, 0),
+     -0.3, 1.5, 60.0, 12.0, 1.2, (0.07, 0.07, 0.26), (0.0, 0.0, -0.12)),
+    ("elbow_pitch_link", "elbow_pitch_joint", (0.0, 0.0, -0.26), (0, 1, 0),
+     -0.1, 2.0, 40.0, 12.0, 1.0, (0.06, 0.06, 0.24), (0.0, 0.0, -0.11)),
+)
+_ARM_MASS = sum(row[8] for row in _ARM)
 # sole box of the feet (link frame of *_ankle_roll_link)
 _FOOT_BOX = (0.22, 0.09, 0.03)
 _FOOT_BOX_OFFSET = (0.03, 0.0, -0.04)
@@ -88,12 +125,38 @@ def _link(name, mass, com, size, collision=None):
     )
 
 
-def topology_urdf_text() -> str:
-    """The stand-in's URDF document. Joints appear in XBOT_JOINT_ORDER, so
+def _joint(name, parent, child, xyz, axis, lo, hi, eff, vel):
+    return (
+        f'  <joint name="{name}" type="revolute">\n'
+        f'    <origin xyz="{_fmt(xyz)}" rpy="0 0 0"/>\n'
+        f'    <parent link="{parent}"/>\n    <child link="{child}"/>\n'
+        f'    <axis xyz="{_fmt(axis)}"/>\n'
+        f'    <limit lower="{lo:.6g}" upper="{hi:.6g}" '
+        f'effort="{eff:.6g}" velocity="{vel:.6g}"/>\n'
+        f'    <dynamics damping="{_JOINT_DAMPING:.6g}"/>\n'
+        f"  </joint>\n"
+    )
+
+
+def topology_urdf_text(arms: bool = False) -> str:
+    """The stand-in's URDF document: the 12-dof robot, or with `arms` the
+    18-dof one. Joints appear in XBOT_JOINT_ORDER (XBOT18_JOINT_ORDER), so
     document order and the named order agree."""
-    parts = ['<?xml version="1.0"?>\n<robot name="xbot_topology">\n']
-    parts.append(_link("base_link", _BASE_MASS, (0.0, 0.0, 0.12),
-                       _BASE_BOX, collision=(_BASE_BOX, _BASE_BOX_OFFSET)))
+    name = "xbot18_topology" if arms else "xbot_topology"
+    parts = [f'<?xml version="1.0"?>\n<robot name="{name}">\n']
+    parts.append(_link("base_link", _BASE_MASS - (2 * _ARM_MASS if arms else 0.0),
+                       (0.0, 0.0, 0.12), _BASE_BOX, collision=(_BASE_BOX, _BASE_BOX_OFFSET)))
+    for side, sign in (("left", 1.0), ("right", -1.0)) if arms else ():
+        parent = "base_link"
+        for (lname, jname, xyz, axis, lo, hi, eff, vel, mass, size, com) in _ARM:
+            # every right arm limit mirrors, and the right pitch axes flip
+            lo_s, hi_s = (lo, hi) if sign > 0 else (-hi, -lo)
+            ax = (axis[0], sign * axis[1], axis[2])
+            child = f"{side}_{lname}"
+            parts.append(_link(child, mass, (com[0], sign * com[1], com[2]), size))
+            parts.append(_joint(f"{side}_{jname}", parent, child, (xyz[0], sign * xyz[1], xyz[2]),
+                                ax, lo_s, hi_s, eff, vel))
+            parent = child
     for side, sign in (("left", 1.0), ("right", -1.0)):
         parent = "base_link"
         for (lname, jname, xyz, axis, lo, hi, eff, vel, mass, size,
@@ -105,40 +168,80 @@ def topology_urdf_text() -> str:
                 if lname == "ankle_roll_link" else None
             parts.append(_link(child, mass, com, size, collision=coll))
             j_xyz = (xyz[0], sign * xyz[1], xyz[2])
-            parts.append(
-                f'  <joint name="{side}_{jname}" type="revolute">\n'
-                f'    <origin xyz="{_fmt(j_xyz)}" rpy="0 0 0"/>\n'
-                f'    <parent link="{parent}"/>\n    <child link="{child}"/>\n'
-                f'    <axis xyz="{_fmt(axis)}"/>\n'
-                f'    <limit lower="{lo_s:.6g}" upper="{hi_s:.6g}" '
-                f'effort="{eff:.6g}" velocity="{vel:.6g}"/>\n'
-                f'    <dynamics damping="{_JOINT_DAMPING:.6g}"/>\n'
-                f"  </joint>\n"
-            )
+            parts.append(_joint(f"{side}_{jname}", parent, child, j_xyz, axis, lo_s, hi_s,
+                                eff, vel))
             parent = child
     parts.append("</robot>\n")
     return "".join(parts)
 
 
-def write_xbot_topology_urdf(directory: str) -> str:
-    """Write the stand-in URDF into `directory` and return its path."""
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, TOPOLOGY_URDF_NAME)
+def _write_text(path: str, text: str) -> str:
+    """Write `text` to `path` atomically (another process may read it)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + f".{os.getpid()}.tmp"
     with open(tmp, "w") as f:
-        f.write(topology_urdf_text())
+        f.write(text)
     os.replace(tmp, path)
     return path
 
 
-def load_robot(urdf_path: str, asset_cfg, armature: float):
-    """Compile `urdf_path` with the task's asset settings, in document order
-    (as the reference does for an explicit `asset.urdf`; the stand-in's
-    document order is XBOT_JOINT_ORDER)."""
+def write_xbot_topology_urdf(directory: str) -> str:
+    """Write the 12-dof stand-in URDF into `directory` and return its path."""
+    return _write_text(os.path.join(directory, TOPOLOGY_URDF_NAME), topology_urdf_text())
+
+
+def write_xbot18_topology_urdf(directory: str) -> str:
+    """Write the 18-dof stand-in URDF into `directory` and return its path."""
+    return _write_text(os.path.join(directory, TOPOLOGY18_URDF_NAME),
+                       topology_urdf_text(arms=True))
+
+
+def make_xbot18_urdf(base_urdf: str, directory: str) -> str:
+    """The 18-dof variant of a real XBot-L URDF, written into `directory`:
+    the six arm joints flipped from `fixed` to `revolute` (their axis and
+    limit blocks are already in the source file), beside a `meshes` link to
+    the source's mesh directory (the file names its meshes as
+    ../meshes/*.STL). Returns the new file's path."""
+    with open(base_urdf) as f:
+        src = f.read()
+    for name in XBOT18_ARM_JOINTS:
+        pat = r'(<joint[^>]*?name="%s"[^>]*?type=")fixed(")' % re.escape(name)
+        src, n = re.subn(pat, r"\1revolute\2", src, flags=re.S)
+        if n != 1:
+            raise ValueError(f"joint {name} not found/unique in {base_urdf}")
+    root = os.path.join(directory, "xbot18_urdf")
+    meshes = os.path.join(root, "meshes")
+    target = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(base_urdf))), "meshes")
+    os.makedirs(root, exist_ok=True)
+    if not os.path.lexists(meshes) or os.readlink(meshes) != target:
+        tmp = meshes + f".{os.getpid()}.tmp"
+        os.symlink(target, tmp)
+        os.replace(tmp, meshes)
+    return _write_text(os.path.join(root, "urdf", "XBot-L-18dof.urdf"), src)
+
+
+def resolve_robot(asset_cfg, directory: str):
+    """AssetCfg -> (URDF path, joint order): an explicit `asset_cfg.urdf`
+    wins (document dof order, None); otherwise the named robot's stand-in,
+    written into `directory`, with its named order."""
+    if asset_cfg.urdf:
+        return asset_cfg.urdf, None
+    if asset_cfg.robot == "xbot18":
+        return write_xbot18_topology_urdf(directory), XBOT18_JOINT_ORDER
+    if asset_cfg.robot == "xbot12":
+        return write_xbot_topology_urdf(directory), XBOT_JOINT_ORDER
+    raise ValueError(f"unknown robot {asset_cfg.robot!r} (xbot12 | xbot18)")
+
+
+def load_robot(urdf_path: str, asset_cfg, armature: float, joint_order=None):
+    """Compile `urdf_path` with the task's asset settings, in `joint_order`
+    or else in document order (as the reference does for an explicit
+    `asset.urdf`; the stand-ins' document orders are their named orders)."""
     from .physics.urdf import load_urdf
 
     return load_urdf(
         urdf_path,
+        joint_order=joint_order,
         foot_name=asset_cfg.foot_name,
         knee_name=asset_cfg.knee_name,
         terminate_on=asset_cfg.terminate_after_contacts_on,

@@ -1,8 +1,7 @@
 """Config dataclasses of the port, copied from the reference package's
 config/structs.py so that the port imports nothing of it: frozen, hashable
 dataclasses whose fields are scalars, strings or tuples. Defaults are the
-reference's; only the 18-dof `d11_cfg` factory is left out (the 18-dof
-task is not ported yet).
+reference's, and `d11_cfg` is its 18-dof task config.
 """
 from __future__ import annotations
 
@@ -366,6 +365,55 @@ class RunnerCfg:
     log_interval: int = 1
     iters_per_dispatch: int = 50
     save_env_state: bool = False
+
+
+def d11_cfg() -> XBotLCfg:
+    """The 18-dof task config the reference fork is configured for
+    (humanoid_config.py:43-55: num_actions=18, num_single_obs=65,
+    num_privileged_obs=97x3) but cannot run — its D11_X assets and env
+    modules are missing (SURVEY.md §0.1-0.2). Robot: the XBot-L 18-dof
+    variant (assets.make_xbot18_urdf; its stand-in,
+    assets.write_xbot18_topology_urdf, until the XBot-L URDF is in the
+    repository). Arm gains/defaults follow the
+    fork's D11 tables (humanoid_config.py:199-246: shoulder 75/3, elbow
+    10/1, elbow default 1.0472 — sign-mirrored on the right to match the
+    XBot URDF's mirrored joint limits); leg gains/defaults keep the
+    validated XBot-L values (same legs).
+
+    base_height_target stays at the XBot-L 0.89 (RewardsCfg default)
+    rather than the fork's 0.94 (humanoid_config.py:382): that value was
+    tuned for the missing D11_X robot, while this task's robot is the
+    XBot-L with arms re-enabled — same legs, same standing base height
+    (~0.89 m at the default pose), so 0.94 would penalize the correct
+    stance. Deliberate deviation, validated by the d11 sim2sim gate."""
+    return XBotLCfg(
+        env=EnvCfg(
+            num_actions=18, num_single_obs=65, single_num_privileged_obs=97
+        ),
+        asset=AssetCfg(robot="xbot18"),
+        init_state=InitStateCfg(
+            default_joint_angles=_t(
+                0.0, 0.0, 1.0472, 0.0, 0.0, -1.0472, *([0.0] * 12)
+            )
+        ),
+        control=ControlCfg(
+            stiffness=_t(75, 75, 10, 75, 75, 10,
+                         200, 200, 350, 350, 15, 15,
+                         200, 200, 350, 350, 15, 15),
+            damping=_t(3, 3, 1, 3, 3, 1, *([10.0] * 12)),
+            # the fork's own (commented-out) per-joint intention,
+            # humanoid_config.py:258-261: arm action range 0.1 rad/unit vs
+            # 0.25 for legs. Round-3 d11 trained with the scalar 0.25 and
+            # converged to 56% in-sim failure terminations (ep len
+            # 1301/2400, validation/d11_pgs) — ±4.5 rad arm swings under
+            # exploration noise destabilize the base; quartering the arm
+            # authority is the reference lineage's own fix.
+            action_scale=_t(*([0.1] * 6), *([0.25] * 12)),
+        ),
+        rewards=RewardsCfg(
+            ref_leg_idx_left=(8, 9, 10), ref_leg_idx_right=(14, 15, 16)
+        ),
+    )
 
 
 @dataclass(frozen=True)

@@ -149,10 +149,12 @@ class XBotLEnv:
 
     terrain: the heightfield Terrain on `device` (the flat plane when None);
     terrain_world: the generated world (env/terrain.py::TerrainWorld) that
-    gives the curriculum's origins and the sampler's raster."""
+    gives the curriculum's origins and the sampler's raster; joint_order:
+    the robot's dof order (assets.resolve_robot), else the URDF's document
+    order."""
 
     def __init__(self, cfg: XBotLCfg, urdf_path: str, device="cuda",
-                 terrain: Optional[Terrain] = None, terrain_world=None):
+                 terrain: Optional[Terrain] = None, terrain_world=None, joint_order=None):
         if cfg.sim.contact_model not in ("penalty", "pgs"):
             raise ValueError(f"unknown contact_model {cfg.sim.contact_model!r} (penalty | pgs)")
         if cfg.terrain.mesh_type not in ("plane", "heightfield", "trimesh"):
@@ -162,7 +164,7 @@ class XBotLEnv:
                              "exactly when it is not 'plane' (utils/registry.py builds it)")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = load_robot(urdf_path, cfg.asset, cfg.sim.armature)
+        self.model = load_robot(urdf_path, cfg.asset, cfg.sim.armature, joint_order)
         m = self.model
         self.nj = m.nj
         self.dt = cfg.dt

@@ -47,7 +47,8 @@ def get_args(argv=None):
     p.add_argument("--out-dir", dest="out_dir")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--urdf", default=None,
-                   help="robot URDF (default: the XBot-topology stand-in)")
+                   help="robot URDF (default: the task's stand-in; on an 18-dof task, a "
+                        "URDF with fixed arm joints, which are made revolute)")
     return p.parse_args(argv)
 
 
@@ -87,7 +88,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     env_cfg, train_cfg = registry.get_cfgs(args.task)
     env_cfg = eval_cfg(env_cfg, args.num_envs)
-    env = registry.build_env(env_cfg, args.urdf or registry.default_urdf(), device)
+    urdf, joint_order = registry.robot(env_cfg, args.urdf)
+    env = registry.build_env(env_cfg, urdf, device, joint_order)
     runner = OnPolicyRunner(env, train_cfg)
     root = os.path.join(args.log_root or registry.LOG_ROOT, train_cfg.runner.experiment_name)
     path = get_load_path(root, args.load_run, args.checkpoint)

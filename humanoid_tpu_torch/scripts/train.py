@@ -2,15 +2,25 @@
 
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH] \
-      [--log-root DIR] [--experiment-name NAME] [--run-name NAME] [--full-state]
+      [--log-root DIR] [--experiment-name NAME] [--run-name NAME] [--full-state] \
+      [--profile N]
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo --resume \
       [--load-run RUN] [--checkpoint IT] --max-iterations 100
 
 Tasks: humanoid_ppo, humanoid_ppo_penalty, humanoid_ppo_terrain,
 humanoid_ppo_trimesh, humanoid_ppo_pgs, humanoid_ppo_robust,
 humanoid_ppo_transfer, humanoid_ppo_omni, humanoid_ppo_envelope,
-humanoid_ppo_8k, humanoid_ppo_sym (utils/registry.py). `--contact
-penalty|pgs` overrides the task's contact model, `--terrain` its mesh type.
+humanoid_ppo_8k, humanoid_ppo_sym, and the 18-dof d11_ppo, d11_ppo_pgs and
+d12_ppo (utils/registry.py). `--contact penalty|pgs` overrides the task's
+contact model, `--terrain` its mesh type. `--urdf PATH` replaces the
+task's stand-in robot; on an 18-dof task it takes an XBot-L URDF with
+fixed arm joints and makes its six arm joints revolute.
+
+`--profile N` trains one warm-up iteration, then N inside a torch.profiler
+trace (utils/profiling.py::device_trace), then the rest; the trace lands in
+the run directory as <host>_<pid>.<time>.pt.trace.json, which Perfetto
+(ui.perfetto.dev) opens, and TensorBoard with its PyTorch profiler plugin
+(`tensorboard --logdir <run dir>`).
 
 A run writes into <log-root>/<experiment>/<%b%d_%H-%M-%S>_<run-name>/
 (log root: --log-root, else $HUMANOID_TPU_LOGS, else <repo>/logs):
@@ -53,7 +63,11 @@ def get_args(argv=None):
                         "model_<it>, so that --resume repeats the unbroken run")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--urdf", default=None,
-                   help="robot URDF (default: the XBot-topology stand-in)")
+                   help="robot URDF (default: the task's stand-in; on an 18-dof task, a "
+                        "URDF with fixed arm joints, which are made revolute)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="trace N iterations with torch.profiler after one warm-up iteration "
+                        "(the trace goes into the run directory)")
     return p.parse_args(argv)
 
 
@@ -112,7 +126,18 @@ def main(argv=None, log_fn=None):
     print(f"task={args.task} envs={env_cfg.env.num_envs} iters={total} device={device} "
           f"log_dir={runner.log_dir}", flush=True)
     try:
-        carry = runner.learn(total, log_fn=on_iteration, carry=carry)
+        if args.profile:
+            from ..utils.profiling import device_trace
+
+            # warm up outside the trace, then trace N iterations, then the rest
+            carry = runner.learn(1, log_fn=on_iteration, carry=carry)
+            with device_trace(runner.log_dir):
+                carry = runner.learn(args.profile, log_fn=on_iteration, carry=carry)
+            print(f"trace written under {runner.log_dir}", flush=True)
+            if total > 1 + args.profile:
+                carry = runner.learn(total - 1 - args.profile, log_fn=on_iteration, carry=carry)
+        else:
+            carry = runner.learn(total, log_fn=on_iteration, carry=carry)
     finally:
         logger.close()
     return runner, carry

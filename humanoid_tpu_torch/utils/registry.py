@@ -26,6 +26,18 @@ reference registry's configs.
                         terrain tasks' rewards and the mirror-symmetry loss
   humanoid_ppo_8k       humanoid_ppo at 8192 envs
   humanoid_ppo_sym      humanoid_ppo with the mirror-symmetry loss
+  d11_ppo               the 18-dof robot (XBot-L with its six arm dofs
+                        re-enabled, arms first; config.structs.d11_cfg) on
+                        humanoid_ppo's physics
+  d11_ppo_pgs           an alias of d11_ppo
+  d12_ppo               d11_ppo with the extended domain randomization, the
+                        stand/walk switch with a walk-stand-walk gait
+                        schedule and the command curriculum
+
+The robot of a task is its `asset.robot` stand-in (assets.resolve_robot),
+written into the package's build directory; `--urdf PATH` replaces it, on
+an 18-dof task with the six arm joints of that file flipped to revolute
+(assets.make_xbot18_urdf).
 
 Warm-started PGS (`sim.pgs_warm_start`) ships in no task, as in the
 reference; a config with it set runs the kernel's warm instance.
@@ -37,10 +49,10 @@ import os
 from datetime import datetime
 from typing import Dict, Optional, Tuple, Union
 
-from ..assets import write_xbot_topology_urdf
-from ..config.structs import (AlgorithmCfg, CommandRangesCfg, CommandsCfg, DomainRandCfg,
-                              EnvCfg, RewardScalesCfg, RewardsCfg, SimCfg, TerrainCfg, XBotLCfg,
-                              XBotLCfgPPO)
+from ..assets import XBOT18_JOINT_ORDER, make_xbot18_urdf, resolve_robot
+from ..config.structs import (AlgorithmCfg, AssetCfg, CommandRangesCfg, CommandsCfg,
+                              DomainRandCfg, EnvCfg, RewardScalesCfg, RewardsCfg, SimCfg,
+                              TerrainCfg, XBotLCfg, XBotLCfgPPO, d11_cfg)
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 # runs go to <LOG_ROOT>/<experiment_name>/<%b%d_%H-%M-%S>_<run_name>/
@@ -123,6 +135,16 @@ _REGISTRY: Dict[str, Tuple[XBotLCfg, XBotLCfgPPO]] = {
     "humanoid_ppo_8k": (XBotLCfg(env=EnvCfg(num_envs=8192), sim=_PGS), XBotLCfgPPO()),
     "humanoid_ppo_sym": (XBotLCfg(sim=_PGS),
                          XBotLCfgPPO(algorithm=AlgorithmCfg(sym_loss=True, sym_coef=1.0))),
+    "d11_ppo": (d11_cfg().replace(sim=_PGS), XBotLCfgPPO()),
+    "d11_ppo_pgs": (d11_cfg().replace(sim=_PGS), XBotLCfgPPO()),
+    "d12_ppo": (
+        d11_cfg().replace(
+            sim=_PGS, domain_rand=_EXTENDED_DR,
+            commands=CommandsCfg(curriculum=True, sw_switch=True,
+                                 gait=("walk_omnidirectional", "stand", "walk_omnidirectional")),
+        ),
+        XBotLCfgPPO(),
+    ),
 }
 
 
@@ -164,38 +186,55 @@ def update_cfg_from_args(env_cfg: XBotLCfg, train_cfg: XBotLCfgPPO, args):
     return env_cfg, train_cfg
 
 
-def default_urdf() -> str:
-    """The XBot-topology stand-in, written into the package's build dir."""
-    return write_xbot_topology_urdf(BUILD_DIR)
+def default_urdf(asset_cfg: Optional[AssetCfg] = None) -> str:
+    """The robot of `asset_cfg` (default: the 12-dof XBot-topology
+    stand-in), its stand-in written into the package's build dir."""
+    return resolve_robot(asset_cfg or AssetCfg(), BUILD_DIR)[0]
 
 
-def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda"):
-    """The env of a config: on a heightfield or trimesh task, the world from
-    the port's numpy generator (seeded by the config), with trimesh's
-    vertical faces at slope_treshold x horizontal_scale of rise per cell."""
+def robot(env_cfg: XBotLCfg, urdf: Optional[str] = None):
+    """(URDF path, joint order) of a config's robot: `urdf` (the CLI's
+    --urdf) in document order, on an 18-dof task with its six arm joints
+    flipped to revolute and the 18-dof order; else the config's own
+    (resolve_robot)."""
+    if urdf is None:
+        return resolve_robot(env_cfg.asset, BUILD_DIR)
+    if env_cfg.asset.robot == "xbot18":
+        return make_xbot18_urdf(urdf, BUILD_DIR), XBOT18_JOINT_ORDER
+    return urdf, None
+
+
+def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda", joint_order=None):
+    """The env of a config on the robot `urdf` (in `joint_order`, else in
+    document order): on a heightfield or trimesh task, the world from the
+    port's numpy generator (seeded by the config), with trimesh's vertical
+    faces at slope_treshold x horizontal_scale of rise per cell."""
     from ..env.terrain import build_terrain
     from ..env.xbotl import XBotLEnv
     from ..physics.contact import Terrain
 
     tc = env_cfg.terrain
     if tc.mesh_type not in ("heightfield", "trimesh"):
-        return XBotLEnv(env_cfg, urdf, device=device)
+        return XBotLEnv(env_cfg, urdf, device=device, joint_order=joint_order)
     world = build_terrain(tc, seed=env_cfg.seed)
     wall_thresh = tc.slope_treshold * tc.horizontal_scale if tc.mesh_type == "trimesh" else 0.0
     terrain = Terrain.heightfield(world.height, world.horizontal_scale, world.border,
                                   wall_thresh=wall_thresh, device=device)
-    return XBotLEnv(env_cfg, urdf, device=device, terrain=terrain, terrain_world=world)
+    return XBotLEnv(env_cfg, urdf, device=device, terrain=terrain, terrain_world=world,
+                    joint_order=joint_order)
 
 
 def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None,
              env_cfg: Optional[XBotLCfg] = None):
     """(env, env cfg, train cfg) of a task; env_cfg, when given, replaces
-    the task's env config (then the CLI overrides apply to it)."""
+    the task's env config (then the CLI overrides apply to it); `urdf`
+    replaces its robot (see `robot`)."""
     task_env_cfg, train_cfg = get_cfgs(name)
     env_cfg = env_cfg or task_env_cfg
     if args is not None:
         env_cfg, train_cfg = update_cfg_from_args(env_cfg, train_cfg, args)
-    return build_env(env_cfg, urdf or default_urdf(), device), env_cfg, train_cfg
+    path, joint_order = robot(env_cfg, urdf)
+    return build_env(env_cfg, path, device, joint_order), env_cfg, train_cfg
 
 
 def run_dir(train_cfg: XBotLCfgPPO, log_root: Optional[str] = None) -> str:

@@ -200,10 +200,10 @@ def test_train_iteration_runs_at_small_size():
 
 
 
-PORTED_TASKS = ["humanoid_ppo", "humanoid_ppo_8k", "humanoid_ppo_envelope", "humanoid_ppo_omni",
-                "humanoid_ppo_penalty", "humanoid_ppo_pgs", "humanoid_ppo_robust",
-                "humanoid_ppo_sym", "humanoid_ppo_terrain", "humanoid_ppo_transfer",
-                "humanoid_ppo_trimesh"]
+PORTED_TASKS = ["d11_ppo", "d11_ppo_pgs", "d12_ppo", "humanoid_ppo", "humanoid_ppo_8k",
+                "humanoid_ppo_envelope", "humanoid_ppo_omni", "humanoid_ppo_penalty",
+                "humanoid_ppo_pgs", "humanoid_ppo_robust", "humanoid_ppo_sym",
+                "humanoid_ppo_terrain", "humanoid_ppo_transfer", "humanoid_ppo_trimesh"]
 
 
 @pytest.mark.parametrize("task", PORTED_TASKS)

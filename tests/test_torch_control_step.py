@@ -21,6 +21,10 @@ engine with EnvPhysParams(com, inertia) and its gain torque; ground planes
 on an exactly linear ramp, where a per-substep bilinear sample of the
 heightfield and a per-control-step tangent plane are the same surface,
 against the reference engine on that heightfield. The same bounds hold.
+
+The setup and the checks take the robot, its gains and its pose from the
+setup dict, so that tests/test_torch_d11.py runs the same checks on the
+18-dof robot.
 """
 import ctypes
 import os
@@ -59,22 +63,24 @@ CSRC = os.path.join(os.path.dirname(__file__), "..", "humanoid_tpu_torch", "csrc
                     "control_step.cu")
 
 
-@pytest.fixture(scope="module")
-def setup(tmp_path_factory):
-    path = write_xbot_topology_urdf(str(tmp_path_factory.mktemp("urdf")))
+def make_setup(path, kp, kd, default_pos):
+    """The robot of the URDF `path` with the PD gains kp, kd, its kernel
+    wrapper (PGS, 6 cold sweeps), and 8 robots posed at default_pos plus
+    small random offsets (the PD targets), settled 0.3 s on both feet and
+    pressed 1 mm into the ground."""
     jm = jax_load_urdf(path, armature=0.01)
     tm = load_urdf(path, armature=0.01)
     lim = (tm.dof_effort * 0.85).astype(np.float32)
-    kernel = ControlStepKernel(tm, KP, KD, lim, ContactParams(), PGSParams(iterations=SWEEPS),
+    kernel = ControlStepKernel(tm, kp, kd, lim, ContactParams(), PGSParams(iterations=SWEEPS),
                                0.001)
     rng = np.random.default_rng(0)
-    qj = rng.uniform(-0.05, 0.05, (N, 12)).astype(np.float32)
+    qj = (default_pos + rng.uniform(-0.05, 0.05, (N, tm.nj))).astype(np.float32)
     masses = np.tile(tm.mass, (N, 1)).astype(np.float32)
     masses[:, 0] += rng.uniform(-5.0, 5.0, N).astype(np.float32)
     friction = rng.uniform(0.1, 2.0, N).astype(np.float32)
     phys = PhysState(torch.tensor(np.c_[np.zeros((N, 2)), np.full(N, 0.90)], dtype=torch.float32),
                      torch.tensor([[1.0, 0.0, 0.0, 0.0]] * N), torch.tensor(qj),
-                     torch.zeros(N, 18))
+                     torch.zeros(N, tm.nv))
     pack = pack_state(phys)
     args = (torch.tensor(masses), torch.tensor(friction), torch.tensor(qj))
     for _ in range(30):
@@ -86,11 +92,24 @@ def setup(tmp_path_factory):
     pack = pack.clone()
     pack[2] -= 1e-3
     return dict(jm=jm, tm=tm, kernel=kernel, lim=lim, pack=pack, masses=masses,
-                friction=friction, targets=qj, weight=weight)
+                friction=friction, targets=qj, weight=weight, kp=np.asarray(kp, np.float32),
+                kd=np.asarray(kd, np.float32))
 
 
-def _jax_state(pack, nj=12):
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    path = write_xbot_topology_urdf(str(tmp_path_factory.mktemp("urdf")))
+    return make_setup(path, KP, KD, np.zeros(12))
+
+
+def _nj(pack):
+    """The joint count of a state pack of 7 + nj + (6 + nj) rows."""
+    return (pack.shape[0] - 13) // 2
+
+
+def _jax_state(pack):
     s = pack.T.numpy()
+    nj = _nj(pack)
     return jeng.PhysState(base_pos=jnp.asarray(s[:, 0:3]), base_quat=jnp.asarray(s[:, 3:7]),
                           qj=jnp.asarray(s[:, 7:7 + nj]), u=jnp.asarray(s[:, 7 + nj:]))
 
@@ -98,9 +117,10 @@ def _jax_state(pack, nj=12):
 def _jax_torque(setup):
     tgt = jnp.asarray(setup["targets"])
     lim = jnp.asarray(setup["lim"])
+    kp, kd = jnp.asarray(setup["kp"]), jnp.asarray(setup["kd"])
 
     def torque(s):
-        return jnp.clip(jnp.asarray(KP) * (tgt - s.qj) - jnp.asarray(KD) * s.u[:, 6:], -lim, lim)
+        return jnp.clip(kp * (tgt - s.qj) - kd * s.u[:, 6:], -lim, lim)
     return torque
 
 
@@ -111,7 +131,8 @@ def _torch_args(setup):
 
 def _kernel_errors(pack_a, ff_a, pack_b, ff_b, weight):
     """max |du|, max |base_pos| and max foot-force error over body weight."""
-    du = float(np.abs(np.asarray(pack_a)[19:] - np.asarray(pack_b)[19:]).max())
+    u0 = 7 + _nj(pack_a)
+    du = float(np.abs(np.asarray(pack_a)[u0:] - np.asarray(pack_b)[u0:]).max())
     dpos = float(np.abs(np.asarray(pack_a)[0:3] - np.asarray(pack_b)[0:3]).max())
     dff = float(np.abs(np.asarray(ff_a) - np.asarray(ff_b)).max())
     return du, dpos, dff / weight
@@ -126,6 +147,10 @@ def _assert_within_kernel_bounds(pack_a, ff_a, pack_b, ff_b, weight):
 
 def test_control_step_matches_reference_engine(setup):
     """Plain control step (frozen factor, exact prep) vs engine.control_step_pgs."""
+    check_control_step_matches_reference_engine(setup)
+
+
+def check_control_step_matches_reference_engine(setup):
     params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
                                 friction=jnp.asarray(setup["friction"]))
     step = jax.jit(lambda s: jeng.control_step_pgs(
@@ -163,7 +188,8 @@ def test_frozen_prep_close_to_exact_prep(setup):
     inside its TPU kernel only): hold it against exact prep."""
     a, _ = setup["kernel"].plain(setup["pack"], *_torch_args(setup), 10, True, True)
     b, _ = setup["kernel"].plain(setup["pack"], *_torch_args(setup), 10, True, False)
-    sa, sb = unpack_state(a, 12), unpack_state(b, 12)
+    nj = setup["tm"].nj
+    sa, sb = unpack_state(a, nj), unpack_state(b, nj)
     assert float((sa.qj - sb.qj).abs().max()) < 1e-3
     assert float((sa.base_pos - sb.base_pos).abs().max()) < 1e-3
     assert float((sa.u - sb.u).abs().max()) < 0.1
@@ -218,12 +244,24 @@ def host_build(tmp_path_factory):
         "                     fr != 0, fp != 0, it, *W);\n"
         "  delete W;\n"
         "}\n"
-        "extern \"C\" int host_table_bytes() { return (int)sizeof(ModelTable); }\n")
+        "extern \"C\" int host_table_bytes() { return (int)sizeof(ModelTable); }\n"
+        # the penalty team's chain schedule at its card size, PENALTY_TEAM = 16
+        "extern \"C\" int host_chains16(const void* table, int* len, int* joint) {\n"
+        "  Chains<16> ch;\n"
+        "  make_chains(*static_cast<const ModelTable*>(table), ch);\n"
+        "  for (int l = 0; l < 16; ++l) {\n"
+        "    len[l] = ch.len[l];\n"
+        "    for (int s = 0; s < ch.len[l]; ++s) joint[l * MAX_NJ + s] = ch.joint[l][s];\n"
+        "  }\n"
+        "  return ch.steps;\n"
+        "}\n")
     lib = d / "libhost.so"
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     lib = ctypes.CDLL(str(lib))
     lib.host_control_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] \
         + [ctypes.c_int] * 7
+    lib.host_chains16.restype = ctypes.c_int
+    lib.host_chains16.argtypes = [ctypes.c_void_p] * 3
     return lib
 
 
@@ -253,8 +291,13 @@ def _host_step(host_build, k, pack, masses, friction, targets, instance, gains=N
 
 
 def _warm_kernel(setup):
-    return ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(),
+    return ControlStepKernel(setup["tm"], setup["kp"], setup["kd"], setup["lim"], ContactParams(),
                              PGSParams(iterations=SWEEPS, warm_start=True), 0.001)
+
+
+def _penalty_kernel(setup):
+    return ControlStepKernel(setup["tm"], setup["kp"], setup["kd"], setup["lim"], ContactParams(),
+                             None, 0.001)
 
 
 @pytest.mark.parametrize("instance,warm", [((1, False, False), False), ((10, True, True), False),
@@ -264,6 +307,10 @@ def test_kernel_source_matches_plain_on_host(setup, host_build, instance, warm):
     """The host-compiled kernel vs the plain version on each instance; with
     `warm`, the warm-started PGS instance (PGSParams.warm_start) against the
     plain warm control step."""
+    check_kernel_source_matches_plain_on_host(setup, host_build, instance, warm)
+
+
+def check_kernel_source_matches_plain_on_host(setup, host_build, instance, warm):
     assert host_build.host_table_bytes() == ctypes.sizeof(ModelTable)
     k = _warm_kernel(setup) if warm else setup["kernel"]
     pack = setup["pack"].contiguous()
@@ -293,9 +340,12 @@ def test_kernel_source_at_small_env_counts_matches_plain_on_host(setup, host_bui
     teams) and 5 (the last block of 37 envs: 5 envs, 3 tail teams). The
     team step with one lane, the tail teams run after the envs and behind
     the NaN guard, against the plain version."""
+    check_kernel_source_at_small_env_counts(setup, host_build, n, contact)
+
+
+def check_kernel_source_at_small_env_counts(setup, host_build, n, contact):
     k = {"cold": setup["kernel"], "warm": _warm_kernel(setup),
-         "penalty": ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(), None,
-                                      0.001)}[contact]
+         "penalty": _penalty_kernel(setup)}[contact]
     pack = setup["pack"][:, :n].contiguous()
     masses, friction, targets = (x[:n].contiguous() for x in _torch_args(setup))
     for instance in ((10, True, True), (1, False, False)):
@@ -313,23 +363,25 @@ def test_kernel_source_at_small_env_counts_matches_plain_on_host(setup, host_bui
 GX, GY = 0.05, -0.05      # the ramp: h = 0.05 x - 0.05 y, one 5 mm count per 0.1 m cell
 
 
-def _random_extras(tm, seed=1, n=N):
+def _random_extras(setup, seed=1, n=N):
     """Gains and bodies drawn in the ranges of the reference's domain
     randomization (DomainRandCfg): strength, kp and kd factors in
     [0.8, 1.2], motor offsets in +-0.035 rad, base COM offsets, inertia
     factors in [0.8, 1.2] applied symmetrically."""
     rng = np.random.default_rng(seed)
-    nb = tm.nb
-    strength = np.repeat(rng.uniform(0.8, 1.2, (n, 1)), 12, axis=1)
-    kpf, kdf = rng.uniform(0.8, 1.2, (n, 12)), rng.uniform(0.8, 1.2, (n, 12))
-    offsets = rng.uniform(-0.035, 0.035, (n, 12))
+    tm = setup["tm"]
+    nb, nj = tm.nb, tm.nj
+    strength = np.repeat(rng.uniform(0.8, 1.2, (n, 1)), nj, axis=1)
+    kpf, kdf = rng.uniform(0.8, 1.2, (n, nj)), rng.uniform(0.8, 1.2, (n, nj))
+    offsets = rng.uniform(-0.035, 0.035, (n, nj))
     com = np.tile(tm.com, (n, 1, 1))
     com[:, 0] += np.c_[rng.uniform(-0.07, 0.03, n), rng.uniform(-0.03, 0.03, (n, 2))]
     f6 = rng.uniform(0.8, 1.2, (n, nb, 6))
     inertia = np.tile(tm.inertia, (n, 1, 1, 1)) * f6[..., (0, 1, 2, 1, 3, 4, 2, 4, 5)].reshape(
         n, nb, 3, 3)
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
-    return dict(kp_eff=f32(KP * kpf), kd_eff=f32(KD * kdf), strength=f32(strength),
+    return dict(kp_eff=f32(setup["kp"] * kpf), kd_eff=f32(setup["kd"] * kdf),
+                strength=f32(strength),
                 offsets=f32(offsets), com=f32(com), inertia=f32(inertia))
 
 
@@ -345,6 +397,10 @@ def _ramp_planes(tm, n=N):
 
 @pytest.fixture(scope="module")
 def ramp(setup):
+    return make_ramp(setup)
+
+
+def make_ramp(setup):
     """8 robots settled 0.3 s on the ramp (planes), then pressed 1 mm in."""
     k = setup["kernel"]
     pack = setup["pack"].clone()
@@ -360,7 +416,7 @@ def ramp(setup):
 
 
 def test_body_rows_round_trip(setup):
-    ex = _random_extras(setup["tm"])
+    ex = _random_extras(setup)
     com, inertia = unpack_body(_gains_body(ex)[1], setup["tm"].nb)
     assert torch.equal(com, torch.tensor(ex["com"]))
     assert torch.equal(inertia, torch.tensor(ex["inertia"]))
@@ -370,7 +426,11 @@ def test_control_step_with_gains_and_body_matches_reference_engine(setup):
     """Plain control step with per-env gains and bodies vs
     engine.control_step_pgs with EnvPhysParams(com, inertia) and the
     reference env's randomized-gain torque."""
-    ex = _random_extras(setup["tm"])
+    check_gains_and_body_match_reference_engine(setup)
+
+
+def check_gains_and_body_match_reference_engine(setup):
+    ex = _random_extras(setup)
     params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
                                 friction=jnp.asarray(setup["friction"]),
                                 com=jnp.asarray(ex["com"]), inertia=jnp.asarray(ex["inertia"]))
@@ -440,7 +500,7 @@ def test_engine_on_a_heightfield_matches_reference_engine(setup, ramp):
         _jax_torque(setup), 10, 0.001, freeze_mass_matrix=True))
     js, jd = step(_jax_state(pack))
     masses, friction, targets = _torch_args(setup)
-    kp, kd, lim = (torch.tensor(x) for x in (KP, KD, setup["lim"]))
+    kp, kd, lim = (torch.tensor(x) for x in (setup["kp"], setup["kd"], setup["lim"]))
 
     def torque(s):
         return torch.clamp(kp * (targets - s.qj) - kd * s.u[:, 6:], -lim, lim)
@@ -448,7 +508,7 @@ def test_engine_on_a_heightfield_matches_reference_engine(setup, ramp):
     ts, td = teng.control_step_pgs(
         RobotTensors.from_model(setup["tm"], "cpu"), teng.EnvPhysParams(masses, friction),
         Terrain.heightfield(height, 0.1, 5.0), ContactParams(), PGSParams(iterations=SWEEPS),
-        unpack_state(pack, 12), torque, 10, 0.001, freeze_mass_matrix=True)
+        unpack_state(pack, setup["tm"].nj), torque, 10, 0.001, freeze_mass_matrix=True)
     jpack = np.concatenate([np.asarray(js.base_pos), np.asarray(js.base_quat),
                             np.asarray(js.qj), np.asarray(js.u)], axis=1).T
     _assert_within_kernel_bounds(pack_state(ts), td.foot_forces, jpack, jd.foot_forces,
@@ -465,11 +525,12 @@ def _random_near_ground(tm, seed=7, n=N):
     f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
     phys = PhysState(f32(np.c_[rng.uniform(-0.1, 0.1, (n, 2)), rng.uniform(0.82, 0.95, n)]),
                      f32(np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))),
-                     f32(rng.uniform(-0.2, 0.2, (n, 12))), f32(rng.uniform(-0.5, 0.5, (n, 18))))
+                     f32(rng.uniform(-0.2, 0.2, (n, tm.nj))),
+                     f32(rng.uniform(-0.5, 0.5, (n, tm.nv))))
     P = n_points(tm)
     g = rng.uniform(-0.2, 0.2, (n, P, 2))
     planes = f32(np.concatenate([rng.uniform(-0.03, 0.03, (n, P, 1)), g], axis=2).reshape(n, -1))
-    targets = f32(rng.uniform(-0.3, 0.3, (n, 12)))
+    targets = f32(rng.uniform(-0.3, 0.3, (n, tm.nj)))
     return pack_state(phys), targets, planes
 
 
@@ -478,11 +539,15 @@ def _random_near_ground(tm, seed=7, n=N):
 def test_kernel_source_with_extras_matches_plain_on_host(setup, ramp, host_build, case):
     """The host-compiled kernel with gains, body and planes vs the plain
     version (with `warm`, on the warm-started PGS instance)."""
+    check_kernel_source_with_extras(setup, ramp, host_build, case)
+
+
+def check_kernel_source_with_extras(setup, ramp, host_build, case):
     k = setup["kernel"]
     if case.endswith("warm"):
         k = _warm_kernel(setup)
     masses, friction, targets = _torch_args(setup)
-    gains, body = _gains_body(_random_extras(setup["tm"]))
+    gains, body = _gains_body(_random_extras(setup))
     instance = {"exact": (1, False, False), "shipping": (10, True, True),
                 "factor": (10, True, False), "warm": (10, True, True)}[case.split("-")[-1]]
     if case.startswith("ramp"):
@@ -512,7 +577,7 @@ def test_bounds_catch_a_kernel_that_ignores_an_input(setup, ramp, host_build, dr
         k = _warm_kernel(setup)
     pack, planes = ramp
     masses, friction, targets = _torch_args(setup)
-    gains, body = _gains_body(_random_extras(setup["tm"]))
+    gains, body = _gains_body(_random_extras(setup))
     extras = {"gains": gains, "body": body, "planes": planes}
     out, hd = _host_step(host_build, k, pack, masses, friction, targets, (10, True, True),
                          **extras)
@@ -531,7 +596,7 @@ def test_bounds_catch_a_kernel_that_ignores_an_input(setup, ramp, host_build, dr
 
 @pytest.fixture(scope="module")
 def penalty_kernel(setup):
-    return ControlStepKernel(setup["tm"], KP, KD, setup["lim"], ContactParams(), None, 0.001)
+    return _penalty_kernel(setup)
 
 
 def _jax_pack(js):
@@ -543,6 +608,10 @@ def _jax_pack(js):
 def test_penalty_control_step_matches_reference_engine(setup, penalty_kernel, freeze):
     """control_step_plain without PGS (engine.control_step_batch, frozen
     factor: B3 + B4; unfrozen: B5 each substep) vs the reference's."""
+    check_penalty_matches_reference_engine(setup, penalty_kernel, freeze)
+
+
+def check_penalty_matches_reference_engine(setup, penalty_kernel, freeze):
     params = jeng.EnvPhysParams(masses=jnp.asarray(setup["masses"]),
                                 friction=jnp.asarray(setup["friction"]))
     step = jax.jit(lambda s: jeng.control_step_batch(
@@ -579,10 +648,10 @@ def test_cached_penalty_substep_matches_reference_engine(setup):
     js, jd = jax.jit(lambda s: jeng.substep_batch_cached(
         setup["jm"], params, JTerrain.plane(), JContactParams(), s, torque(s), 0.001, L))(js0)
     masses, friction, targets = _torch_args(setup)
-    kp, kd, lim = (torch.tensor(x) for x in (KP, KD, setup["lim"]))
+    kp, kd, lim = (torch.tensor(x) for x in (setup["kp"], setup["kd"], setup["lim"]))
     rt = RobotTensors.from_model(setup["tm"], "cpu")
     tparams = teng.EnvPhysParams(masses, friction)
-    state = unpack_state(setup["pack"], 12)
+    state = unpack_state(setup["pack"], setup["tm"].nj)
     tau = torch.clamp(kp * (targets - state.qj) - kd * state.u[:, 6:], -lim, lim)
     ts, td = teng.substep_batch(rt, tparams, Terrain.plane(), ContactParams(), state, tau, 0.001,
                                 L=teng.mass_matrix_factor(rt, tparams, state))
@@ -636,6 +705,12 @@ def test_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp
     lane, tail teams behind the NaN guard) vs control_step_batch: on the
     flat plane without inputs, and with gains, body and planes on the ramp
     and on random per-point planes, the factor frozen or not."""
+    check_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp, host_build,
+                                                      case)
+
+
+def check_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp, host_build,
+                                                      case):
     k = penalty_kernel
     masses, friction, targets = _torch_args(setup)
     instance = {"exact": (1, False, False), "shipping": (10, True, True),
@@ -644,11 +719,11 @@ def test_penalty_kernel_source_matches_plain_on_host(setup, penalty_kernel, ramp
     pack = setup["pack"]
     if case.startswith("ramp"):
         pack, planes = ramp
-        gains, body = _gains_body(_random_extras(setup["tm"]))
+        gains, body = _gains_body(_random_extras(setup))
         extras = dict(gains=gains, body=body, planes=planes)
     elif case.startswith("random"):
         pack, targets, planes = _random_near_ground(setup["tm"])
-        gains, body = _gains_body(_random_extras(setup["tm"]))
+        gains, body = _gains_body(_random_extras(setup))
         extras = dict(gains=gains, body=body, planes=planes)
     out, hd = _host_step(host_build, k, pack, masses, friction, targets, instance, **extras)
     b, db = k.plain(pack, masses, friction, targets, *instance, **extras)

@@ -34,13 +34,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _loaded_feet(kernel, model, device, planes=None, N=N):
+def _loaded_feet(kernel, model, device, planes=None, N=N, default_pos=0.0):
     rng = np.random.default_rng(0)
 
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device).contiguous()
 
-    qj = rng.uniform(-0.05, 0.05, (N, model.nj))
+    qj = default_pos + rng.uniform(-0.05, 0.05, (N, model.nj))
     masses = np.tile(model.mass, (N, 1))
     masses[:, 0] += rng.uniform(-5.0, 5.0, N)
     phys = PhysState(t(np.c_[np.zeros((N, 2)), np.full(N, 0.90)]),
@@ -383,9 +383,14 @@ def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
     factor, and with random gains and bodies on a ramp. A tail team that
     wrote its env N + j would overwrite env j's next output row; two
     launches give the same bits."""
+    _check_team_kernel(cuda_device, "humanoid_ppo", case, n)
+
+
+def _check_team_kernel(cuda_device, task, case, n):
     instance, model_kind, extras = TEAM_CASES[case]
-    env, _, _ = registry.make_env("humanoid_ppo", device=cuda_device)
+    env, cfg, _ = registry.make_env(task, device=cuda_device)
     m, p = env.model, env.physics
+    default_pos = np.asarray(cfg.init_state.default_joint_angles)
     params = None if model_kind == "penalty" else p.pgs_params._replace(
         warm_start=model_kind == "warm")
     k = ControlStepKernel(m, *p.gains, p.contact_params, params, p.dt)
@@ -409,7 +414,8 @@ def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
     # penalty: settled on the PGS contact, as the other penalty tests
     settle_with = k if params is not None else ControlStepKernel(m, *p.gains, p.contact_params,
                                                                  p.pgs_params, p.dt)
-    inputs = _loaded_feet(settle_with, m, cuda_device, kw.get("planes"), N=n)
+    inputs = _loaded_feet(settle_with, m, cuda_device, kw.get("planes"), N=n,
+                          default_pos=default_pos)
     a, da = k(*inputs, *instance, **kw)
     a2, da2 = k(*inputs, *instance, **kw)
     b, db = k.plain(*inputs, *instance, **kw)
@@ -417,8 +423,54 @@ def test_cuda_team_kernel_matches_plain(cuda_device, case, n):
     assert k.launches == 2
     assert torch.equal(a, a2) and torch.equal(da.foot_forces, da2.foot_forces)
     weight = m.total_mass * 9.81
-    assert float((a[19:] - b[19:]).abs().max()) < 1e-2
+    u0 = 7 + m.nj
+    assert float((a[u0:] - b[u0:]).abs().max()) < 1e-2
     assert float((a[0:3] - b[0:3]).abs().max()) < 1e-5
     assert float((da.foot_forces - db.foot_forces).abs().max()) < 0.01 * weight
     for x, y in zip(da, db):
         assert x.shape == y.shape and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 4093])
+@pytest.mark.parametrize("case", ["shipping", "exact", "warm", "extras", "penalty",
+                                  "penalty-extras"])
+def test_cuda_18dof_team_kernel_matches_plain(cuda_device, case, n):
+    """The team kernels on the 18-dof robot of d11_ppo (nj = 18, nv = 24;
+    four branches off the base: the penalty team's chain schedule has its
+    arm lanes), settled in the d11 pose: the same checks as
+    test_cuda_team_kernel_matches_plain, with gains, body and planes
+    (d12_ppo runs gains and body)."""
+    _check_team_kernel(cuda_device, "d11_ppo", case, n)
+
+
+@pytest.mark.cuda
+def test_cuda_factor_apply_on_18dof_mass_matrices(cuda_device):
+    """B3 and B4 at n = 24 on the mass matrices of 4096 settled 18-dof
+    robots (the engine path's inputs), against the plain versions: within
+    4e-6 of each env's largest entry (chip_smoke.py's bound on settled mass
+    matrices), the same bits on repeat."""
+    from humanoid_tpu_torch.ops.physics_kernel import unpack_state
+    from humanoid_tpu_torch.physics.dynamics import assemble_mass_matrix, compute_kinematics_bias
+    from humanoid_tpu_torch.physics.kinematics import RobotTensors
+
+    env, cfg, _ = registry.make_env("d11_ppo", device=cuda_device)
+    m, p = env.model, env.physics
+    pack, masses, _, _ = _loaded_feet(p, m, cuda_device, N=ENVS,
+                                      default_pos=np.asarray(cfg.init_state.default_joint_angles))
+    st = unpack_state(pack, m.nj)
+    rt = RobotTensors.from_model(m, cuda_device)
+    out = compute_kinematics_bias(rt, st.base_pos, st.base_quat, st.qj, st.u, mass=masses)
+    M, b = assemble_mass_matrix(rt, out[2], out[3]).contiguous(), (-out[5]).contiguous()
+    assert M.shape == (ENVS, 24, 24)
+    k = linalg.CholeskyKernels()
+    L, L2 = k.factor_spd_batch(M), k.factor_spd_batch(M)
+    Lp = linalg.chol_factor_unrolled(M)
+    x, x2 = k.apply_spd_batch(Lp, b), k.apply_spd_batch(Lp, b)
+    xp = linalg.chol_apply_unrolled(Lp, b)
+    torch.cuda.synchronize()
+    assert k.launches == {"chol_factor": 2, "chol_apply": 2, "chol_solve": 0}
+    assert float((L - Lp).abs().amax((1, 2)).div(Lp.abs().amax((1, 2))).max()) < 4e-6
+    assert float((x - xp).abs().amax(1).div(xp.abs().amax(1)).max()) < 4e-6
+    assert torch.equal(_bits(L), _bits(L2)) and torch.equal(_bits(x), _bits(x2))
+    assert bool((torch.triu(L, 1) == 0).all())

@@ -23,9 +23,15 @@ leaked = sorted(m for m in sys.modules
                 or (m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mujoco")
                     and sys.modules[m] is not None))
 print(len(names), "modules")
+print("MODULES", " ".join(names))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
 """
+
+
+# the modules of the 18-dof slice, walked and imported like every other one
+NEW_MODULES = ("assets", "utils.profiling", "env.vec_env", "utils.calculate_gait",
+               "physics.mjcf_export")
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
@@ -35,6 +41,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
     assert "LEAKED []" in proc.stdout
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20, proc.stdout
+    walked = set(proc.stdout.split("MODULES", 1)[1].split("\n", 1)[0].split())
+    assert {f"humanoid_tpu_torch.{m}" for m in NEW_MODULES} <= walked, proc.stdout
 
 
 def test_port_sources_never_name_the_reference_assets():
