@@ -47,7 +47,15 @@ the engine path for 1, with their launches per iteration checked;
 (B1 once per step, the exports within 1e-5). `profile` runs
 `train --profile 1` on humanoid_ppo and prints the trace's five device
 ops by total time and the share of the traced rollout's wall time in which
-the device was busy.
+the device was busy. `dist` trains humanoid_ppo data-parallel through
+`train --mesh` for 2 iterations: at world 1 in a one-rank NCCL group the
+script makes itself (the same bits as without --mesh), as two ranks
+sharing the card over gloo with 2048 envs each (started as torchrun starts
+them; the same bits on both ranks, rank 0 alone saving, B1 60 times per
+iteration on each, B1 against its plain version at 2048 envs), and
+`scripts.bench_scaling` at one rank. `--dist-ranks W` runs W ranks
+instead of two, over NCCL where a card is visible for each (with
+bench_scaling then at 1, 2, 4 ... W cards).
 A determinism phase runs the control step's PGS and penalty instances
 several times on the same inputs and requires identical outputs (a missing
 sync between the lanes of a team shows as run-to-run differences). Then it
@@ -113,9 +121,15 @@ PLAY_STEPS = 300                 # the reference play's default rollout
 SMALL_N = (1, 37)                # B1 vs plain where play runs it: 1 env, a tail block
 TOL_EXPORT = 1e-5                # the exports against the float32 actor
 PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism",
-          "d11_control", "train", "d11_train", "checkpoint", "d11_play", "profile", "time")
+          "d11_control", "train", "d11_train", "checkpoint", "d11_play", "profile", "dist",
+          "time")
 D11_TASK = "d11_ppo"             # the 18-dof robot: nj 18, nb 19, nv 24
 PROFILED_ITERATIONS = 1          # the profile phase: train --profile 1 on humanoid_ppo
+DIST_ITERATIONS = 2              # the dist phase's training runs
+DIST_TIMEOUT = 300               # seconds for the dist phase's ranks, then they are killed
+# the reference package's bound for its sharded run against one device
+# (tests/test_parallel.py), printed beside the 2-rank run's difference
+TOL_SHARDED_PARAMS = 5e-4
 
 
 def emit(phase, **fields):
@@ -325,12 +339,13 @@ def sampler_points(env, seed=3):
 
 
 def train_phase(train, registry, task, iterations, log_name, log_root, sim=None, n_envs=N,
-                argv=()):
+                argv=(), on_row=None):
     """Train `task` at n_envs envs: through scripts.train.main (with
     `argv` added), saving under `log_root`, or, with `sim` overrides of its
     SimCfg, through registry.make_env(env_cfg=...) and make_alg_runner,
-    saving nothing. The env and its wrappers are new, so every count starts
-    at 0. Returns (runner, carry, rows, peak)."""
+    saving nothing; on_row() is called after each iteration. The env and
+    its wrappers are new, so every count starts at 0. Returns (runner,
+    carry, rows, peak)."""
     import dataclasses
 
     import torch
@@ -347,8 +362,10 @@ def train_phase(train, registry, task, iterations, log_name, log_root, sim=None,
                "kernel_launches": m.kernel_launches,
                "sampler_launches": m.sampler_launches, "factor_launches": m.factor_launches,
                "apply_launches": m.apply_launches, "solve_launches": m.solve_launches}
-        emit(log_name, task=task, sim=sim or {}, **row)
+        emit(log_name, task=task, sim=sim or {}, argv=list(argv), **row)
         rows.append(row)
+        if on_row is not None:
+            on_row()
 
     if sim is None:
         runner, carry = train.main(["--task", task, "--num-envs", str(n_envs),
@@ -717,6 +734,167 @@ def checkpoint_phase(train, play, registry, probe, model, inputs, root):
     return out, launches
 
 
+def dist_phase(train, play, registry, probe, model, inputs, root, ranks=2):
+    """Data-parallel training of humanoid_ppo at N envs through `train
+    --mesh` (parallel/{dist,mesh}.py): (a) world 1 in the process group of
+    one rank that the script makes itself (NCCL on the card) against the
+    same run without --mesh, in bits; (b) `ranks` ranks, N / ranks envs
+    each, started as torchrun starts them (parallel/dist.py::launch, each
+    rank `parallel/rank_view.py`, which writes what it holds), over the
+    backend the rule gives (gloo for two ranks sharing one card): the same
+    parameters, Adam and global metrics in bits on every rank, one run
+    directory, only rank 0's model_2.pt, B1 60 times per iteration on each
+    rank, everything finite, and B1 against its plain version on N / ranks
+    envs of `inputs`; their largest parameter difference from (a)'s plain
+    run and the env-steps/s of each are printed, not gated (ranks sharing
+    a card are no scaling number); (c) scripts.bench_scaling at 1 rank, and
+    at 2, 4, 8 up to `ranks` where the cards allow one rank each. Returns
+    (summary, launches by path)."""
+    import torch
+
+    from humanoid_tpu_torch.parallel import dist
+    from humanoid_tpu_torch.scripts import bench_scaling
+
+    task, S, its = "humanoid_ppo", STEPS_PER_ITERATION, DIST_ITERATIONS
+    cfg, _ = registry.get_cfgs(task)
+    expect = {"kernel_launches": S, "sampler_launches": 0, "factor_launches": 0,
+              "apply_launches": 0, "solve_launches": 0}
+    out, launches = {}, {}
+
+    # (a) world 1: train --mesh against train, the same bits
+    backends = []
+
+    def note_backend():
+        if torch.distributed.is_initialized():
+            backends.append(torch.distributed.get_backend())
+
+    plain, pcarry, prows, _ = train_phase(train, registry, task, its, "dist_world1_iteration",
+                                          os.path.join(root, "plain"), n_envs=N)
+    check_training(task, plain, pcarry, prows, cfg, its, expect, N)
+    launches["dist: train"] = play.kernel_launches(plain.env)
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    if cards == 1:
+        meshed, mcarry, mrows, _ = train_phase(train, registry, task, its,
+                                               "dist_world1_iteration",
+                                               os.path.join(root, "mesh"), n_envs=N,
+                                               argv=("--mesh",), on_row=note_backend)
+        check_training(task, meshed, mcarry, mrows, cfg, its, expect, N)
+        launches["dist: train --mesh, world 1"] = play.kernel_launches(meshed.env)
+        state_bits, carry_bits = same_training_state(plain, meshed), same_carry(pcarry, mcarry)
+        want_backend = "nccl" if DEVICE == "cuda" else "gloo"
+        out["world1"] = {"backend": sorted(set(backends)), "shard": list(meshed.shard),
+                         "same_training_state": state_bits,
+                         "carry_fields_differing": [k for k, v in carry_bits.items() if not v],
+                         "group_gone": not torch.distributed.is_initialized()}
+        if not (all(state_bits.values()) and all(carry_bits.values())
+                and set(backends) == {want_backend} and out["world1"]["group_gone"]):
+            raise AssertionError(f"dist (a): train --mesh at world 1 is not train: "
+                                 f"{out['world1']}")
+        del meshed, mcarry
+    else:
+        # several cards: launched alone, train --mesh starts one rank per card
+        spawn_root = os.path.join(root, "spawned")
+        t0 = time.perf_counter()
+        returned = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
+                               str(its), "--device", DEVICE, "--log-root", spawn_root, "--mesh"])
+        run_dirs = glob.glob(os.path.join(spawn_root, "*", "*"))
+        files = sorted(os.listdir(run_dirs[0])) if len(run_dirs) == 1 else []
+        logged = 0
+        if "metrics.jsonl" in files:
+            with open(os.path.join(run_dirs[0], "metrics.jsonl")) as f:
+                logged = sum(1 for _ in f)
+        out["spawned"] = {"ranks": cards, "wall_s": time.perf_counter() - t0,
+                          "returned": list(returned), "run_dirs": len(run_dirs),
+                          "files": files, "iterations_logged": logged}
+        if not (list(returned) == [None, None] and f"model_{its}.pt" in files
+                and logged == its):
+            raise AssertionError(f"dist (a): train --mesh over {cards} cards: {out['spawned']}")
+
+    # (b) `ranks` ranks: sharing the card over gloo, or one card each over NCCL
+    n_rank = N // ranks
+    pack, masses, friction, targets = inputs
+    b = compare(probe, model, (pack[:, :n_rank].contiguous(), masses[:n_rank].contiguous(),
+                               friction[:n_rank].contiguous(), targets[:n_rank].contiguous()),
+                10, True, True)
+    check_within(f"B1 shipping at {n_rank} envs", b)
+    views_dir = os.path.join(root, "views")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist.launch(ranks, ["-m", "humanoid_tpu_torch.parallel.rank_view", views_dir, "--task", task,
+                    "--num-envs", str(N), "--max-iterations", str(its), "--device", DEVICE,
+                    "--log-root", os.path.join(root, "ranks")],
+                timeout=DIST_TIMEOUT, log_dir=os.path.join(root, "rank_logs"))
+    wall = time.perf_counter() - t0
+    views = [torch.load(os.path.join(views_dir, f"rank{r}.pt")) for r in range(ranks)]
+    r0, others = views[0], views[1:]
+    zero = {k: 0 for k in launches["dist: train"]}
+    for v in views:
+        launches[f"dist: rank {v['rank']} of {ranks}"] = {**zero,
+                                                          "control_step_kernel": v["launches"]}
+    backend = dist.backend_for(DEVICE, ranks)[0]
+    metric_keys = ("mean_step_reward", "value_loss", "surrogate_loss", "kl", "lr", "ep_count",
+                   "ep_rew_sums", "rew_terms_mean")
+    finite = all(bool(torch.isfinite(x).all()) for v in views
+                 for x in (*v["params"].values(), v["obs"], v["critic_obs"]))
+    checks = {
+        "params_same_bits": all(same_bits(r0["params"][k], r["params"][k])
+                                for r in others for k in r0["params"]),
+        "adam_same_bits": all(same_bits(x, y) for r in others for k in ("adam_mu", "adam_nu")
+                              for x, y in zip(r0[k], r[k]))
+        and all(r0["adam_count"] == r["adam_count"] and same_bits(r0["lr"], r["lr"])
+                for r in others),
+        "metrics_same_bits": all(same_bits(torch.as_tensor(a[k]), torch.as_tensor(c[k]))
+                                 for r in others for a, c in zip(r0["rows"], r["rows"])
+                                 for k in metric_keys),
+        "one_run_dir": all(r0["log_dir"] == r["log_dir"] for r in others),
+        "rank0_alone_wrote_model_2": ([os.path.basename(p) for p in r0["written"]]
+                                      == [f"model_{its}.pt"]
+                                      and all(r["written"] == [] for r in others)),
+        "b1_60_per_iteration": all(len(v["rows"]) == its and all(
+            row["kernel_launches"] == S for row in v["rows"]) for v in views),
+        "finite": finite,
+        f"backend_{backend}_world_{ranks}": all(v.get("backend") == backend
+                                                and v["world"] == ranks for v in views),
+        "no_jax_loaded": all(v["loaded"] == [] for v in views),
+        "b1_vs_plain_within_bounds": within(b),
+    }
+    diff = max((r0["params"][n] - p.detach().cpu()).abs().max().item()
+               for n, p in plain.net.named_parameters())
+    out["ranks"] = {
+        "ranks": ranks, "backend": backend, "envs_per_rank": n_rank,
+        "devices": [v["device"] for v in views],
+        "checks": checks, "wall_s": wall,
+        "max_param_diff_vs_one_process": diff, "reference_bound": TOL_SHARDED_PARAMS,
+        "env_steps_per_s": [v["rows"][-1]["env_steps_per_s"] for v in views],
+        "one_process_env_steps_per_s": prows[-1]["env_steps_per_s"],
+        "rollout_s": [v["rows"][-1]["rollout_s"] for v in views],
+        "update_s": [v["rows"][-1]["update_s"] for v in views],
+        "collectives": [v["collectives"] for v in views],
+        "collective_s": [v["collective_s"] for v in views],
+        "collective_share_of_training": [
+            v["collective_s"] / sum(row["rollout_s"] + row["update_s"] for row in v["rows"])
+            for v in views],
+        "floats_per_update_collective": r0["param_floats"] + 5,
+        "mean_step_reward": [float(row["mean_step_reward"]) for row in r0["rows"]],
+        "one_process_mean_step_reward": [row["mean_reward"] for row in prows],
+        "b1_vs_plain": b}
+    if not all(checks.values()):
+        raise AssertionError(f"dist (b): the ranks failed a check: {out['ranks']}")
+    del plain, pcarry
+
+    # (c) weak scaling: one rank, and one rank per card up to `ranks`
+    cards = torch.cuda.device_count()
+    counts = [w for w in (1, 2, 4, 8) if w == 1 or w <= min(ranks, cards)]
+    rows = bench_scaling.main(["--devices", *map(str, counts), "--envs-per-device", str(N),
+                               "--steps", str(S), "--warmup", "1", "--iters", "2", "--device",
+                               DEVICE, "--timeout", str(DIST_TIMEOUT)])
+    out["scaling"] = rows
+    if [r["devices"] for r in rows] != counts or not all(
+            math.isfinite(r["iter_s"]) and r["iter_s"] > 0 for r in rows):
+        raise AssertionError(f"dist (c): bench_scaling gave {rows}")
+    return out, launches
+
+
 def trace_summary(path, top=5):
     """The device ops of a torch.profiler trace (kernels, copies, memsets)
     with the most total time, and the share of the `rollout` span's wall
@@ -749,32 +927,40 @@ def trace_summary(path, top=5):
 
 
 def parse_phases(argv):
+    """(the phases to run, the dist phase's rank count)."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of humanoid_tpu_torch on one card.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
-    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    ap.add_argument("--dist-ranks", type=int, default=2,
+                    help="ranks of the dist phase's multi-rank run (default 2, sharing one "
+                         "card; with a card for each, over NCCL)")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown or not phases:
         ap.error(f"unknown phases {unknown}: choose from {','.join(PHASES)}")
-    return set(phases)
+    if args.dist_ranks < 2 or N % (args.dist_ranks * 8):
+        ap.error(f"--dist-ranks {args.dist_ranks}: need 2 or more ranks that split {N} envs "
+                 "into multiples of 8")
+    return set(phases), args.dist_ranks
 
 
 def main(argv=None):
-    phases = parse_phases(argv)
+    phases, dist_ranks = parse_phases(argv)
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     log_root = tempfile.mkdtemp(prefix="chip_smoke_")   # every run's checkpoints and logs
     try:
-        run(phases, log_root)
+        run(phases, log_root, dist_ranks)
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
 
 
-def run(phases, log_root):
+def run(phases, log_root, dist_ranks=2):
     import torch
 
     t_start = time.perf_counter()
@@ -1184,6 +1370,17 @@ def run(phases, log_root):
         if not prof["device_ops"] or share is None or not 0.0 < share <= 1.0:
             raise AssertionError(f"profile: the trace shows no device work in the rollout: {prof}")
         del profiled, carry
+
+    # ---- 4e. data-parallel training: train --mesh at world 1 (NCCL) in
+    # bits, two ranks sharing the card (gloo), bench_scaling at one rank ----
+    if "dist" in phases:
+        t_path = time.perf_counter()
+        dist_out, dist_launches = dist_phase(train, play, registry, probe, model, on_flat,
+                                             os.path.join(log_root, "dist"), dist_ranks)
+        launches.update(dist_launches)
+        summaries["dist"] = {"wall_s": time.perf_counter() - t_path}
+        emit("dist", task="humanoid_ppo", envs=N, launches=dist_launches,
+             wall_s=summaries["dist"]["wall_s"], **dist_out)
 
     # ---- 5. kernel times against their bounds ----
     timing = {}

@@ -8,14 +8,21 @@ clip_by_global_norm + scale_by_adam, written out here), then by the
 adaptive learning rate, which each minibatch updates from its own KL before
 its step. One permutation of tiles of `shuffle_granule` consecutive rows is
 drawn per update and reused by every epoch.
+
+Over W > 1 ranks (parallel/mesh.py) the permutation is of the global batch,
+each rank computes its rows' share of every mean, and the gradients and the
+KL are summed over the ranks before the step: every rank takes the step
+that one process with the whole batch takes.
 """
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config.structs import AlgorithmCfg
+from ..parallel.mesh import EnvShard, all_reduce_sum, minibatch_rows, single
 from .networks import ActorCritic, entropy, kl_divergence, log_prob
 
 
@@ -80,58 +87,87 @@ def tile_permutation(B: int, cfg: AlgorithmCfg, gen: torch.Generator, device) ->
     return (tiles[:, None] * g + torch.arange(g, device=device)).reshape(-1)
 
 
-def symmetry_loss(net: ActorCritic, obs, mean, obs_perm, act_perm):
+def symmetry_loss(net: ActorCritic, obs, mean, obs_perm, act_perm, mean_of=torch.mean):
     """mean((mu(obs) - mirror(mu(mirror(obs))))^2): the actor's mean action
     against the mirror of its action on the mirrored observation. The
     mirror is exact in the stored dtype (one signed entry per column)."""
     mirrored = net.act_mean(obs.float() @ obs_perm) @ act_perm
-    return torch.mean(torch.square(mean - mirrored))
+    return mean_of(torch.square(mean - mirrored))
 
 
 def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
                perm: torch.Tensor, vel_slice: Tuple[int, int],
                obs_perm: Optional[torch.Tensor] = None,
-               act_perm: Optional[torch.Tensor] = None) -> UpdateMetrics:
+               act_perm: Optional[torch.Tensor] = None,
+               shard: Optional[EnvShard] = None) -> UpdateMetrics:
     """num_learning_epochs x num_mini_batches gradient steps over `batch`
     in the row order `perm` (see tile_permutation). With cfg.sym_loss and
     the mirror matrices (algo/symmetry.py: obs_perm over the stacked actor
     obs, act_perm over the actions), the loss adds
-    sym_coef * mean((mu(obs) - mirror(mu(mirror(obs))))^2)."""
-    B = batch.obs.shape[0]
+    sym_coef * mean((mu(obs) - mirror(mu(mirror(obs))))^2).
+
+    With the `shard` of W > 1 ranks, `batch` holds this rank's rows of the
+    (T, N) batch, flattened (T * n_local rows), and `perm` permutes the
+    global T * N rows. Each global minibatch is cut to the rows this rank
+    holds; every mean is a local sum over the global minibatch size (the
+    entropy, which depends on no row, is weighted by this rank's share of
+    the rows); the gradients, the KL and the loss metrics are summed over
+    the ranks in one collective per minibatch, before the learning rate
+    and the step. A rank with no rows of a minibatch joins it with zero
+    gradients."""
+    sharded = not single(shard)
+    B = batch.obs.shape[0] * (shard.world if sharded else 1)
     nmb = cfg.num_mini_batches
     mb = B // nmb
     idx = perm[: mb * nmb].reshape(nmb, mb)
+    rows = minibatch_rows(idx, shard) if sharded else idx
+    if sharded:
+        def mean_of(x):
+            return x.sum() / (mb * math.prod(x.shape[1:]))
+    else:
+        mean_of = torch.mean
     vlo, vhi = vel_slice
     params = list(net.parameters())
     sums = torch.zeros(5, device=batch.obs.device)
     for _ in range(cfg.num_learning_epochs):
         for j in range(nmb):
-            m = Batch(*(x[idx[j]] for x in batch))
+            m = Batch(*(x[rows[j]] for x in batch))
             mean, std, value, vel = net(m.obs, m.critic_obs)
             logp = log_prob(mean, std, m.actions)
             ent = entropy(std)
-            kl = torch.mean(kl_divergence(m.old_mu, m.old_sigma, mean, std)).detach()
+            ent_mean = ent * (rows[j].shape[0] / mb) if sharded else torch.mean(ent)
+            kl = mean_of(kl_divergence(m.old_mu, m.old_sigma, mean, std)).detach()
             ratio = torch.exp(logp - m.old_logp)
             surrogate = -m.advantages * ratio
             surrogate_clipped = -m.advantages * torch.clamp(
                 ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param)
-            surrogate_loss = torch.mean(torch.maximum(surrogate, surrogate_clipped))
+            surrogate_loss = mean_of(torch.maximum(surrogate, surrogate_clipped))
             if cfg.use_clipped_value_loss:
                 value_clipped = m.target_values + torch.clamp(
                     value - m.target_values, -cfg.clip_param, cfg.clip_param)
-                value_loss = torch.mean(torch.maximum(torch.square(value - m.returns),
-                                                      torch.square(value_clipped - m.returns)))
+                value_loss = mean_of(torch.maximum(torch.square(value - m.returns),
+                                                   torch.square(value_clipped - m.returns)))
             else:
-                value_loss = torch.mean(torch.square(m.returns - value))
-            vel_loss = torch.mean(torch.square(vel - m.critic_obs[:, vlo:vhi].float()))
+                value_loss = mean_of(torch.square(m.returns - value))
+            vel_loss = mean_of(torch.square(vel - m.critic_obs[:, vlo:vhi].float()))
             if cfg.sym_loss and obs_perm is not None:
-                sym_loss = symmetry_loss(net, m.obs, mean, obs_perm, act_perm)
+                sym_loss = symmetry_loss(net, m.obs, mean, obs_perm, act_perm, mean_of)
             else:
                 sym_loss = torch.zeros((), device=mean.device)
             loss = (surrogate_loss + cfg.value_loss_coef * value_loss
-                    - cfg.entropy_coef * torch.mean(ent) + cfg.sym_coef * sym_loss
+                    - cfg.entropy_coef * ent_mean + cfg.sym_coef * sym_loss
                     + cfg.base_lin_vel_coef * vel_loss)
             grads = torch.autograd.grad(loss, params)
+            losses = torch.stack([value_loss.detach(), surrogate_loss.detach(),
+                                  vel_loss.detach(), sym_loss.detach(), kl])
+            if sharded:
+                # one collective: the gradients, then the losses and the KL
+                flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [losses]),
+                                      shard)
+                grads = [g.view_as(p) for g, p in zip(
+                    torch.split(flat[:-5], [p.numel() for p in params]), params)]
+                losses = flat[-5:]
+                kl = losses[4]
             if cfg.schedule == "adaptive" and cfg.desired_kl is not None:
                 lr = opt.lr
                 lr = torch.where(
@@ -140,8 +176,7 @@ def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
                                 torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
                 opt.lr = lr
             opt.step(grads)
-            sums += torch.stack([value_loss.detach(), surrogate_loss.detach(),
-                                 vel_loss.detach(), sym_loss.detach(), kl])
+            sums += losses
     n = cfg.num_learning_epochs * nmb
     v, s, vel, sym, kl = (sums / n).unbind()
     return UpdateMetrics(value_loss=v, surrogate_loss=s, vel_loss=vel, sym_loss=sym, kl=kl,

@@ -12,9 +12,19 @@ Checkpoints (reference `save`, `save_state`, `load_state`, `load`):
 its step count and learning rate, and the iteration; `state_<it>.pt` adds
 the iteration carry field by field and the generator's state, so that a run
 resumed from it repeats the unbroken run.
+
+On a sharded env (parallel/mesh.py) each of W ranks runs this runner on its
+share of the envs: the action noise, the random episode lengths and the
+minibatch permutation are drawn at the global size, the advantages are
+normalized over every rank's, and the iteration's metrics are summed over
+the ranks, so that every rank logs the global values and takes the update
+that one process with every env takes. Rank 0 alone saves; the exact
+state is not saved over several ranks (no rank holds the whole carry), as
+in the reference.
 """
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional
@@ -23,6 +33,7 @@ import torch
 
 from ..config.structs import XBotLCfgPPO
 from ..env.xbotl import EnvState, XBotLEnv
+from ..parallel.mesh import all_reduce_sum, draw, global_mean_std, single
 from ..physics.engine import PhysState
 from .gae import compute_gae
 from .networks import MIN_STD, ActorCritic, log_prob
@@ -71,6 +82,8 @@ class OnPolicyRunner:
         self.cfg = train_cfg
         self.log_dir = log_dir
         self.device = env.device
+        self.shard = env.shard
+        self.n_global = env.n_global
         ecfg = env.cfg.env
         pcfg = train_cfg.policy
         self.gen = torch.Generator(device=self.device)
@@ -111,9 +124,10 @@ class OnPolicyRunner:
         env = self.env
         state = env.initial_state(self.gen)
         if init_at_random_ep_len:
-            state = state._replace(episode_length=torch.randint(
-                0, env.max_episode_length, state.episode_length.shape,
-                generator=self.gen, device=self.device, dtype=torch.int32))
+            state = state._replace(episode_length=draw(
+                self.shard, torch.randint, 0, env.max_episode_length,
+                size=state.episode_length.shape, generator=self.gen, device=self.device,
+                dtype=torch.int32))
         N, nj = env.cfg.env.num_envs, env.cfg.env.num_actions
         state, out = env.step(state, torch.zeros(N, nj, device=self.device), self.gen)
         return IterationCarry(env_state=state, obs=out.obs, critic_obs=out.privileged_obs)
@@ -153,7 +167,8 @@ class OnPolicyRunner:
             with torch.profiler.record_function("rollout"):   # a span for device_trace
                 for t in range(T):
                     mean = net.act_mean(obs)
-                    action = mean + std * torch.randn(mean.shape, generator=self.gen, device=dev)
+                    action = mean + std * draw(self.shard, torch.randn, size=mean.shape,
+                                               generator=self.gen, device=dev)
                     obs_buf[t] = obs
                     cobs_buf[t] = cobs
                     act_buf[t] = action
@@ -177,7 +192,8 @@ class OnPolicyRunner:
                 if env.cfg.env.send_timeouts else rew_buf
             advantages, returns = compute_gae(rewards, values, done_buf, last_values,
                                               acfg.gamma, acfg.lam)
-            norm_adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            adv_mean, adv_std = global_mean_std(advantages, self.shard)
+            norm_adv = (advantages - adv_mean) / (adv_std + 1e-8)
             batch = Batch(
                 obs=obs_buf.reshape(T * N, -1), critic_obs=cobs_buf.reshape(T * N, -1),
                 actions=act_buf.reshape(T * N, -1), old_logp=logp_buf.reshape(-1),
@@ -185,25 +201,39 @@ class OnPolicyRunner:
                 old_sigma=std.expand(T * N, -1), target_values=values.reshape(-1),
                 advantages=norm_adv.reshape(-1), returns=returns.reshape(-1),
             )
-            perm = tile_permutation(T * N, acfg, self.gen, dev)
+            perm = tile_permutation(T * self.n_global, acfg, self.gen, dev)
         update = ppo_update(net, acfg, self.opt, batch, perm, self.vel_slice, self.obs_perm,
-                            self.act_perm)
+                            self.act_perm, self.shard)
         self._sync()
         t2 = time.perf_counter()
         self.iteration += 1
         levels = es.terrain_levels
+        hist = (levels[:, None] == torch.arange(TERRAIN_LEVEL_BINS, device=dev,
+                                                dtype=levels.dtype)).float()
+        if single(self.shard):
+            step_reward, rew_terms_mean = rew_buf.mean(), rew_terms / T
+            level_mean, level_hist = levels.float().mean(), hist.mean(0)
+        else:
+            # the global values, in one collective: sums over every rank's envs
+            n_rew = ep_rew.shape[0]
+            total = all_reduce_sum(torch.cat([
+                ep_rew, ep_stats, rew_terms * N, hist.sum(0),
+                torch.stack([rew_buf.sum(), levels.float().sum()])]), self.shard)
+            ep_rew, ep_stats, rew_terms, hist_sum, rest = torch.split(
+                total, [n_rew, 3, n_rew, TERRAIN_LEVEL_BINS, 2])
+            Ng = self.n_global
+            step_reward, level_mean = rest[0] / (T * Ng), rest[1] / Ng
+            level_hist, rew_terms_mean = hist_sum / Ng, rew_terms / (Ng * T)
         metrics = IterationMetrics(
-            update=update, mean_step_reward=rew_buf.mean(), ep_rew_sums=ep_rew,
+            update=update, mean_step_reward=step_reward, ep_rew_sums=ep_rew,
             ep_count=ep_stats[0], ep_len_sum=ep_stats[1], ep_term_count=ep_stats[2],
             mean_action_std=torch.clamp(net.std.detach(), min=MIN_STD).mean(),
-            rew_terms_mean=rew_terms / T, rollout_s=t1 - t0, update_s=t2 - t1,
+            rew_terms_mean=rew_terms_mean, rollout_s=t1 - t0, update_s=t2 - t1,
             kernel_launches=env.physics.launches - launches0,
             sampler_launches=self._sampler_launches() - sampler0,
             **{f"{k}_launches": env.cholesky.launches[f"chol_{k}"] - chol0[f"chol_{k}"]
                for k in ("factor", "apply", "solve")},
-            terrain_level_mean=levels.float().mean(),
-            terrain_level_hist=(levels[:, None] == torch.arange(
-                TERRAIN_LEVEL_BINS, device=dev, dtype=levels.dtype)).float().mean(0),
+            terrain_level_mean=level_mean, terrain_level_hist=level_hist,
         )
         return IterationCarry(env_state=es, obs=obs, critic_obs=cobs), metrics
 
@@ -211,12 +241,13 @@ class OnPolicyRunner:
               log_fn: Optional[Callable] = None,
               carry: Optional[IterationCarry] = None) -> IterationCarry:
         """Train for `num_iterations`, from `carry` or else from a fresh env;
-        log_fn(it, metrics, env_steps_per_s) is called after each. With a
-        log_dir, saves every `save_interval` iterations and at the end (and
-        the exact state beside each save when `runner.save_env_state`)."""
+        log_fn(it, metrics, env_steps_per_s) is called after each (the env
+        steps of every rank). With a log_dir, saves every `save_interval`
+        iterations and at the end (and the exact state beside each save when
+        `runner.save_env_state`)."""
         if carry is None:
             carry = self.init_carry(init_at_random_ep_len)
-        steps = self.cfg.runner.num_steps_per_env * self.env.cfg.env.num_envs
+        steps = self.cfg.runner.num_steps_per_env * self.n_global
         every = self.cfg.runner.save_interval
         saved_at = None
         for _ in range(num_iterations):
@@ -231,6 +262,8 @@ class OnPolicyRunner:
         return carry
 
     def _save_all(self, carry: IterationCarry):
+        if self.shard is not None and self.shard.rank != 0:
+            return                      # rank 0 alone writes the run's checkpoints
         self.save()
         if self.cfg.runner.save_env_state:
             self.save_state(carry)
@@ -284,6 +317,11 @@ class OnPolicyRunner:
         from ..utils.checkpoint import save_checkpoint
 
         path = path or os.path.join(self.log_dir, f"state_{self.iteration}")
+        if not single(self.shard):
+            logging.getLogger(__name__).warning(
+                "save_env_state skipped: exact-state checkpoints are single-rank only (the "
+                "env axis is split over %d ranks)", self.shard.world)
+            return path
         return save_checkpoint(path, {**self._payload(), "carry": _as_dict(carry),
                                       "generator": self.gen.get_state()})
 

@@ -39,6 +39,7 @@ height scan -> history and last_* updates -> obs clip.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -51,6 +52,7 @@ from ..config.structs import XBotLCfg
 from ..ops.linalg import CholeskyKernels
 from ..ops.physics_kernel import ControlStepKernel, pack_body, pack_state, unpack_state
 from ..ops.terrain_sampler import TerrainSampler
+from ..parallel.mesh import EnvShard, all_reduce_sum, draw, single
 from ..physics.contact import ContactParams, Terrain
 from ..physics.engine import EnvPhysParams, PhysState, control_step_batch, control_step_pgs
 from ..physics.kinematics import RobotTensors, fk
@@ -151,10 +153,17 @@ class XBotLEnv:
     terrain_world: the generated world (env/terrain.py::TerrainWorld) that
     gives the curriculum's origins and the sampler's raster; joint_order:
     the robot's dof order (assets.resolve_robot), else the URDF's document
-    order."""
+    order; shard: this rank's share of the envs in a data-parallel run
+    (parallel/mesh.py), with cfg.env.num_envs the global count. A sharded
+    env steps its n_local envs; each per-env draw is made at the global
+    count and the rank keeps its rows, the spawn grid and the terrain
+    columns come from the global env index, and the command curriculum's
+    tallies are summed over the ranks, so that W ranks step what one env
+    with every env steps."""
 
     def __init__(self, cfg: XBotLCfg, urdf_path: str, device="cuda",
-                 terrain: Optional[Terrain] = None, terrain_world=None, joint_order=None):
+                 terrain: Optional[Terrain] = None, terrain_world=None, joint_order=None,
+                 shard: Optional[EnvShard] = None):
         if cfg.sim.contact_model not in ("penalty", "pgs"):
             raise ValueError(f"unknown contact_model {cfg.sim.contact_model!r} (penalty | pgs)")
         if cfg.terrain.mesh_type not in ("plane", "heightfield", "trimesh"):
@@ -162,6 +171,14 @@ class XBotLEnv:
         if (cfg.terrain.mesh_type != "plane") != (terrain_world is not None):
             raise ValueError(f"mesh_type {cfg.terrain.mesh_type!r} needs a terrain world "
                              "exactly when it is not 'plane' (utils/registry.py builds it)")
+        if shard is not None:
+            if shard.n_global != cfg.env.num_envs:
+                raise ValueError(f"a shard of {shard.n_global} envs for a config of "
+                                 f"{cfg.env.num_envs}")
+            cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=shard.n_local))
+        self.shard = shard
+        self.env_lo = shard.offset if shard is not None else 0    # first global env here
+        self.n_global = shard.n_global if shard is not None else cfg.env.num_envs
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = load_robot(urdf_path, cfg.asset, cfg.sim.armature, joint_order)
@@ -204,14 +221,14 @@ class XBotLEnv:
         self.n_rew = len(self.reward_names)
         self.noise_vec = self._build_noise_vec()
 
-        N = cfg.env.num_envs
+        N, lo = self.n_global, self.env_lo
         cols = int(np.floor(np.sqrt(N)))
         rows = int(np.ceil(N / cols))
         xx, yy = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
         origins = np.zeros((N, 3))
         origins[:, 0] = cfg.terrain.env_spacing * xx.flatten()[:N]
         origins[:, 1] = cfg.terrain.env_spacing * yy.flatten()[:N]
-        self.env_origins = t(origins)          # the plane's grid
+        self.env_origins = t(origins[lo:lo + cfg.env.num_envs])    # the plane's grid
 
         # terrain: the curriculum's cell origins and the sampler
         self.terrain = terrain if terrain is not None else Terrain.plane()
@@ -309,8 +326,19 @@ class XBotLEnv:
         double = (torch.abs(sin_pos) < 0.1)[:, None]
         return torch.where(double, 0.0, ref)
 
+    # per-env draws (leading dim: the envs), at the global count when sharded
+    def _rand(self, gen, shape):
+        return draw(self.shard, torch.rand, size=shape, generator=gen, device=self.device)
+
+    def _randn(self, gen, shape):
+        return draw(self.shard, torch.randn, size=shape, generator=gen, device=self.device)
+
+    def _randint(self, gen, lo, hi, shape, **kwargs):
+        return draw(self.shard, torch.randint, lo, hi, size=shape, generator=gen,
+                    device=self.device, **kwargs)
+
     def _uniform(self, gen, shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=self.device)
+        return lo + (hi - lo) * self._rand(gen, shape)
 
     def _sample_commands(self, gen, n, cmd_x_range=None):
         """(n, 4) fresh commands; cmd_x_range (2,), under the command
@@ -320,7 +348,7 @@ class XBotLEnv:
         if cmd_x_range is None:
             vx = self._uniform(gen, (n,), *r.lin_vel_x)
         else:
-            u = torch.rand((n,), generator=gen, device=self.device)
+            u = self._rand(gen, (n,))
             vx = cmd_x_range[0] + u * (cmd_x_range[1] - cmd_x_range[0])
         vy = self._uniform(gen, (n,), *r.lin_vel_y)
         if cfg.heading_command:
@@ -330,8 +358,8 @@ class XBotLEnv:
             heading = torch.zeros(n, device=self.device)
             wyaw = self._uniform(gen, (n,), *r.ang_vel_yaw)
         if cfg.axis_frac > 0.0:
-            on_axis = torch.rand((n,), generator=gen, device=self.device) < cfg.axis_frac
-            sagittal = torch.rand((n,), generator=gen, device=self.device) < 0.5
+            on_axis = self._rand(gen, (n,)) < cfg.axis_frac
+            sagittal = self._rand(gen, (n,)) < 0.5
             vx, vy = axis_project(vx, vy, on_axis, sagittal, r)
         cmds = torch.stack([vx, vy, wyaw, heading], dim=-1)
         keep = (torch.linalg.vector_norm(cmds[:, 0:2], dim=1) > 0.2).float()
@@ -357,7 +385,7 @@ class XBotLEnv:
         a random step of the i-th of n_gaits equal parts of the episode."""
         n_g = len(self.cfg.commands.gait)
         seg = self.max_episode_length // n_g
-        u = torch.randint(1, max(seg, 2), (n, n_g), generator=gen, device=self.device)
+        u = self._randint(gen, 1, max(seg, 2), (n, n_g))
         return (u + seg * torch.arange(n_g, device=self.device)).to(torch.int32)
 
     def _reset_phys(self, gen, n, env_origins):
@@ -461,8 +489,7 @@ class XBotLEnv:
                 torch.clamp(episode_length, min=1).float() * self.reward_scales[self.track_idx])
             moving = torch.linalg.vector_norm(commands[:, 0:2], dim=1) > 0.1
             move_up = time_out & moving & (q >= tc.promote_quality)
-            move_down = (term & ~time_out) & (
-                torch.rand(levels.shape, generator=gen, device=self.device) < tc.demote_prob)
+            move_down = (term & ~time_out) & (self._rand(gen, levels.shape) < tc.demote_prob)
         else:
             dist = torch.linalg.vector_norm(phys.base_pos[:, 0:2] - state.env_origins[:, 0:2], dim=1)
             move_up = dist > self.terrain_world.terrain_length / 2
@@ -470,13 +497,11 @@ class XBotLEnv:
                         * self.cfg.env.episode_length_s * 0.5)
             move_down = (dist < required) & ~move_up
         new = levels + move_up.int() - move_down.int()
-        rand_lvl = torch.randint(0, self.max_terrain_level, levels.shape, generator=gen,
-                                 device=self.device, dtype=levels.dtype)
+        rand_lvl = self._randint(gen, 0, self.max_terrain_level, levels.shape, dtype=levels.dtype)
         new = torch.where(new >= self.max_terrain_level, rand_lvl, torch.clamp(new, min=0))
         if tc.random_level_frac > 0.0:
             # exploration floor: a uniform random row for a fraction of resets
-            explore = torch.rand(levels.shape, generator=gen,
-                                 device=self.device) < tc.random_level_frac
+            explore = self._rand(gen, levels.shape) < tc.random_level_frac
             new = torch.where(explore, rand_lvl, new)
         levels = torch.where(reset_buf, new, levels)
         cells = self.terrain_origins.reshape(-1, 3)
@@ -541,8 +566,9 @@ class XBotLEnv:
         dev = self.device
         dr = cfg.domain_rand
         if dr.randomize_friction:
-            buckets = self._uniform(gen, (256,), *dr.friction_range)
-            friction = buckets[torch.randint(0, 256, (N,), generator=gen, device=dev)]
+            lo, hi = dr.friction_range        # one draw for all envs, then one per env
+            buckets = lo + (hi - lo) * torch.rand((256,), generator=gen, device=dev)
+            friction = buckets[self._randint(gen, 0, 256, (N,))]
         else:
             friction = torch.ones(N, device=dev)
         masses = torch.as_tensor(self.model.mass, dtype=torch.float32, device=dev).repeat(N, 1)
@@ -557,10 +583,10 @@ class XBotLEnv:
         if self.custom_origins:
             max_init = (cfg.terrain.max_init_terrain_level if cfg.terrain.curriculum
                         else self.max_terrain_level - 1)
-            terrain_levels = torch.randint(0, max_init + 1, (N,), generator=gen, device=dev,
-                                           dtype=torch.int32)
-            terrain_types = (torch.arange(N, device=dev) * self.terrain_world.num_cols
-                             // N).to(torch.int32)
+            terrain_levels = self._randint(gen, 0, max_init + 1, (N,), dtype=torch.int32)
+            # the column of each env from its global index
+            terrain_types = (torch.arange(self.env_lo, self.env_lo + N, device=dev)
+                             * self.terrain_world.num_cols // self.n_global).to(torch.int32)
             env_origins = self.terrain_origins[terrain_levels.long(), terrain_types.long()]
         else:
             terrain_levels = z(N, dtype=torch.int32)
@@ -579,7 +605,7 @@ class XBotLEnv:
         if self.sw_switch:
             extra.update(
                 time_to_stand_still=z(N), phase_length_buf=z(N, dtype=torch.int32),
-                gait_start=torch.randint(0, 2, (N,), generator=gen, device=dev).float() * 0.5,
+                gait_start=self._randint(gen, 0, 2, (N,)).float() * 0.5,
                 gait_time=self._generate_gait_time(gen, N))
         if cfg.commands.curriculum:
             extra["cmd_x_range"] = torch.tensor(cfg.commands.ranges.lin_vel_x,
@@ -616,11 +642,11 @@ class XBotLEnv:
         if cfg.env.use_ref_actions:
             actions = actions + 2.0 * self._ref_dof_pos(state.episode_length)
         if dr.action_delay:
-            delay = torch.rand((N, 1), generator=gen, device=dev)
+            delay = self._rand(gen, (N, 1))
             actions = (1 - delay) * actions + delay * state.actions
         if dr.dynamic_randomization > 0:
-            actions = actions + dr.dynamic_randomization * torch.randn(
-                actions.shape, generator=gen, device=dev) * actions
+            actions = actions + dr.dynamic_randomization * self._randn(
+                gen, actions.shape) * actions
         clip_a = cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
 
@@ -768,8 +794,7 @@ class XBotLEnv:
         if self.sw_switch:
             ttss = torch.where(reset_buf, 0.0, ttss)
             plb = torch.where(reset_buf, 0, plb)
-            gs = torch.where(reset_buf, torch.randint(0, 2, (N,), generator=gen,
-                                                      device=dev).float() * 0.5, gs)
+            gs = torch.where(reset_buf, self._randint(gen, 0, 2, (N,)).float() * 0.5, gs)
             gait_time = torch.where(reset_buf[:, None], self._generate_gait_time(gen, N),
                                     gait_time)
         dof_rand = {}
@@ -791,9 +816,13 @@ class XBotLEnv:
             # above 80% of the possible reward
             T = self.max_episode_length
             track = self.reward_scales[self.track_idx]
-            mean_track = torch.sum(episode_sums[:, self.track_idx] * rmask) / torch.clamp(
-                ep_count, min=1.0)
-            widen = ((common_step % T) == 0) & (mean_track / T > 0.8 * track) & (ep_count > 0)
+            track_sum, ended = torch.sum(episode_sums[:, self.track_idx] * rmask), ep_count
+            if not single(self.shard):
+                # the episodes that end now on every rank
+                track_sum, ended = all_reduce_sum(torch.stack([track_sum, ended]),
+                                                  self.shard).unbind()
+            mean_track = track_sum / torch.clamp(ended, min=1.0)
+            widen = ((common_step % T) == 0) & (mean_track / T > 0.8 * track) & (ended > 0)
             mc = cfg.commands.max_curriculum
             wider = torch.stack([torch.clamp(cmd_x_range[0] - 0.5, -mc, 0.0),
                                  torch.clamp(cmd_x_range[1] + 0.5, 0.0, mc)])
@@ -842,8 +871,8 @@ class XBotLEnv:
             command_input, q, dq, actions, base_ang_vel_o * os_.ang_vel, base_euler_o * os_.quat,
         ], dim=1)
         if cfg.noise.add_noise:
-            single_obs = single_obs + torch.randn(
-                single_obs.shape, generator=gen, device=dev) * self.noise_vec * cfg.noise.noise_level
+            single_obs = single_obs + self._randn(
+                gen, single_obs.shape) * self.noise_vec * cfg.noise.noise_level
 
         zero3 = reset_buf[:, None, None]
         obs_hist = torch.cat([torch.where(zero3, 0.0, state.obs_hist)[:, 1:],

@@ -3,7 +3,7 @@
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH] \
       [--log-root DIR] [--experiment-name NAME] [--run-name NAME] [--full-state] \
-      [--profile N]
+      [--profile N] [--mesh [--multihost]]
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo --resume \
       [--load-run RUN] [--checkpoint IT] --max-iterations 100
 
@@ -31,6 +31,20 @@ latest run (or --load-run / --checkpoint) for --max-iterations more:
 from the exact state when its `state_<it>.pt` exists, else from the model
 and optimizer with fresh envs.
 
+`--mesh` trains data-parallel over ranks, one process per rank, each on
+its share of the envs (parallel/mesh.py), as one process with every env
+would: under a launcher (`torchrun --nproc-per-node G -m
+humanoid_tpu_torch.scripts.train --mesh ...`) over the launcher's ranks;
+launched alone, over one rank per visible card (parallel/dist.py::launch
+starts them and the run fails if any rank fails), or, with one card or on
+the CPU, in a process group of this process alone. `--num-envs` is the
+global count, which the ranks must divide. The backend is `nccl` when
+every rank has a card of its own, else `gloo`. Rank 0 alone prints, logs
+and saves; `--full-state` saves no exact state over several ranks.
+`--multihost` requires the launcher's environment (RANK, WORLD_SIZE,
+LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), for ranks on
+several nodes, and raises without it.
+
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
 from __future__ import annotations
@@ -39,8 +53,11 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 import torch
+
+from ..parallel import dist
 
 
 def get_args(argv=None):
@@ -68,6 +85,12 @@ def get_args(argv=None):
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="trace N iterations with torch.profiler after one warm-up iteration "
                         "(the trace goes into the run directory)")
+    p.add_argument("--mesh", action="store_true",
+                   help="train data-parallel over ranks, the env axis split over them "
+                        "(under a launcher its ranks, else one per visible card)")
+    p.add_argument("--multihost", action="store_true",
+                   help="take the ranks from the launcher's environment (torchrun), and fail "
+                        "without it (use with --mesh)")
     return p.parse_args(argv)
 
 
@@ -78,16 +101,49 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None, log_fn=None):
-    """Train; returns (runner, last iteration carry). log_fn(it, metrics,
-    env_steps_per_s) replaces the default one-JSON-line-per-iteration log;
-    metrics.jsonl is written either way."""
+    """Train; returns (runner, last iteration carry), or (None, None) in
+    the process that started the ranks of `--mesh` (see the module's
+    docstring). log_fn(it, metrics, env_steps_per_s), called on every
+    rank, replaces the default one-JSON-line-per-iteration log; rank 0
+    writes metrics.jsonl either way."""
+    args = get_args(argv)
+    if args.multihost and not args.mesh:
+        raise ValueError("--multihost takes its ranks for --mesh: pass both")
+    if args.multihost and not dist.launched():
+        raise RuntimeError("--multihost needs the launcher's environment "
+                           f"({', '.join(dist.LAUNCH_VARS)}): start the ranks with torchrun")
+    if not args.mesh:
+        return _train(args, resolve_device(args.device), log_fn)
+    if dist.launched():
+        made_group = dist.init_from_env(args.device)
+    else:
+        ranks = 1
+        if args.device == "cuda":
+            resolve_device(args.device)
+            ranks = torch.cuda.device_count()
+        if ranks > 1:
+            # one rank per visible card, each this same command under the
+            # launcher's variables; rank 0 prints
+            dist.launch(ranks, ["-m", "humanoid_tpu_torch.scripts.train",
+                                *(sys.argv[1:] if argv is None else argv)],
+                        timeout=float("inf"), echo_rank0=True)
+            return None, None
+        made_group = dist.init_single(args.device)
+    try:
+        return _train(args, dist.device_for_rank(args.device), log_fn)
+    finally:
+        if made_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, log_fn):
     from ..utils import registry
     from ..utils.checkpoint import get_load_path, state_path_of
     from ..utils.logging import TrainLogger
 
-    args = get_args(argv)
-    device = resolve_device(args.device)
-    env, env_cfg, train_cfg = registry.make_env(args.task, args, device=device, urdf=args.urdf)
+    env, env_cfg, train_cfg = registry.make_env(args.task, args, device=device, urdf=args.urdf,
+                                                sharded=args.mesh)
+    main_rank = dist.is_main()
     if args.full_state:
         train_cfg = train_cfg.replace(runner=dataclasses.replace(train_cfg.runner,
                                                                  save_env_state=True))
@@ -100,14 +156,18 @@ def main(argv=None, log_fn=None):
     runner = registry.make_alg_runner(env, train_cfg, log_root=args.log_root)
     if resume_from is not None:
         state_path = state_path_of(resume_from)
-        if os.path.isfile(state_path + ".pt"):
+        # an exact state holds every env: one rank alone resumes from it
+        if os.path.isfile(state_path + ".pt") and dist.process_count() == 1:
             print(f"resuming exact state from {state_path}", flush=True)
             carry = runner.load_state(state_path)
         else:
-            print(f"resuming from {resume_from}", flush=True)
+            if main_rank:
+                print(f"resuming from {resume_from}", flush=True)
             runner.load(resume_from)
     total = train_cfg.runner.max_iterations
-    logger = TrainLogger(runner.log_dir, env.reward_names, env_cfg, train_cfg)
+    # rank 0 alone logs and prints
+    logger = TrainLogger(runner.log_dir, env.reward_names, env_cfg, train_cfg) \
+        if main_rank else None
 
     def console(it, m, fps):
         print(json.dumps({
@@ -120,11 +180,16 @@ def main(argv=None, log_fn=None):
         }), flush=True)
 
     def on_iteration(it, m, fps):
-        logger.log(it, m, fps, m.rollout_s + m.update_s)
-        (log_fn or console)(it, m, fps)
+        if logger is not None:
+            logger.log(it, m, fps, m.rollout_s + m.update_s)
+        if log_fn is not None:
+            log_fn(it, m, fps)
+        elif main_rank:
+            console(it, m, fps)
 
-    print(f"task={args.task} envs={env_cfg.env.num_envs} iters={total} device={device} "
-          f"log_dir={runner.log_dir}", flush=True)
+    if main_rank:
+        print(f"task={args.task} envs={env_cfg.env.num_envs} iters={total} device={device} "
+              f"log_dir={runner.log_dir}", flush=True)
     try:
         if args.profile:
             from ..utils.profiling import device_trace
@@ -133,13 +198,15 @@ def main(argv=None, log_fn=None):
             carry = runner.learn(1, log_fn=on_iteration, carry=carry)
             with device_trace(runner.log_dir):
                 carry = runner.learn(args.profile, log_fn=on_iteration, carry=carry)
-            print(f"trace written under {runner.log_dir}", flush=True)
+            if main_rank:
+                print(f"trace written under {runner.log_dir}", flush=True)
             if total > 1 + args.profile:
                 carry = runner.learn(total - 1 - args.profile, log_fn=on_iteration, carry=carry)
         else:
             carry = runner.learn(total, log_fn=on_iteration, carry=carry)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return runner, carry
 
 

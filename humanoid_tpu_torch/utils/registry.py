@@ -204,43 +204,57 @@ def robot(env_cfg: XBotLCfg, urdf: Optional[str] = None):
     return urdf, None
 
 
-def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda", joint_order=None):
+def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda", joint_order=None, shard=None):
     """The env of a config on the robot `urdf` (in `joint_order`, else in
-    document order): on a heightfield or trimesh task, the world from the
-    port's numpy generator (seeded by the config), with trimesh's vertical
-    faces at slope_treshold x horizontal_scale of rise per cell."""
+    document order), on this rank's `shard` of the envs when given: on a
+    heightfield or trimesh task, the world from the port's numpy generator
+    (seeded by the config), with trimesh's vertical faces at
+    slope_treshold x horizontal_scale of rise per cell."""
     from ..env.terrain import build_terrain
     from ..env.xbotl import XBotLEnv
     from ..physics.contact import Terrain
 
     tc = env_cfg.terrain
     if tc.mesh_type not in ("heightfield", "trimesh"):
-        return XBotLEnv(env_cfg, urdf, device=device, joint_order=joint_order)
+        return XBotLEnv(env_cfg, urdf, device=device, joint_order=joint_order, shard=shard)
     world = build_terrain(tc, seed=env_cfg.seed)
     wall_thresh = tc.slope_treshold * tc.horizontal_scale if tc.mesh_type == "trimesh" else 0.0
     terrain = Terrain.heightfield(world.height, world.horizontal_scale, world.border,
                                   wall_thresh=wall_thresh, device=device)
     return XBotLEnv(env_cfg, urdf, device=device, terrain=terrain, terrain_world=world,
-                    joint_order=joint_order)
+                    joint_order=joint_order, shard=shard)
 
 
 def make_env(name: str, args=None, device="cuda", urdf: Optional[str] = None,
-             env_cfg: Optional[XBotLCfg] = None):
+             env_cfg: Optional[XBotLCfg] = None, sharded: bool = False):
     """(env, env cfg, train cfg) of a task; env_cfg, when given, replaces
     the task's env config (then the CLI overrides apply to it); `urdf`
-    replaces its robot (see `robot`)."""
+    replaces its robot (see `robot`). `sharded` splits the env axis over
+    the ranks of the process group (parallel/mesh.py): the env then holds
+    this rank's share, and the returned env cfg keeps the global count."""
     task_env_cfg, train_cfg = get_cfgs(name)
     env_cfg = env_cfg or task_env_cfg
     if args is not None:
         env_cfg, train_cfg = update_cfg_from_args(env_cfg, train_cfg, args)
+    shard = None
+    if sharded:
+        from ..parallel.dist import process_count, process_index
+        from ..parallel.mesh import make_shard
+
+        shard = make_shard(env_cfg.env.num_envs, process_index(), process_count(),
+                           train_cfg.algorithm.shuffle_granule)
     path, joint_order = robot(env_cfg, urdf)
-    return build_env(env_cfg, path, device, joint_order), env_cfg, train_cfg
+    return build_env(env_cfg, path, device, joint_order, shard), env_cfg, train_cfg
 
 
 def run_dir(train_cfg: XBotLCfgPPO, log_root: Optional[str] = None) -> str:
     """<log_root or LOG_ROOT>/<experiment_name>/<%b%d_%H-%M-%S>_<run_name>,
-    the reference's run directory (created when the run first writes)."""
-    leaf = datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name
+    the reference's run directory (created when the run first writes); in a
+    data-parallel run, rank 0's on every rank."""
+    from ..parallel.dist import sync_run_name
+
+    leaf = sync_run_name(datetime.now().strftime("%b%d_%H-%M-%S") + "_"
+                         + train_cfg.runner.run_name)
     return os.path.join(log_root or LOG_ROOT, train_cfg.runner.experiment_name, leaf)
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: importing humanoid_tpu_torch, every one of its
 modules and chip_smoke.py loads nothing of JAX, flax, MuJoCo or the
-reference package. Checked in a fresh interpreter in which those packages
-cannot be imported at all."""
+reference package, and neither does a rank of a data-parallel run. Checked
+in fresh interpreters in which those packages cannot be imported at all."""
 import os
 import subprocess
 import sys
@@ -29,9 +29,38 @@ sys.exit(1 if leaked else 0)
 """
 
 
-# the modules of the 18-dof slice, walked and imported like every other one
+# the modules of the 18-dof and the data-parallel slices, walked and
+# imported like every other one
 NEW_MODULES = ("assets", "utils.profiling", "env.vec_env", "utils.calculate_gait",
-               "physics.mjcf_export")
+               "physics.mjcf_export", "parallel.dist", "parallel.mesh", "parallel.rank_view",
+               "scripts.sweep", "scripts.bench_scaling")
+
+# a rank of `train --mesh` (2 gloo ranks, 16 envs, one iteration of 4
+# steps), with the same packages made unimportable
+RANK = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "mujoco", "onnx", "wandb", "tensorboard"):
+    sys.modules[name] = None
+import dataclasses
+import torch
+torch.set_num_threads(1)
+from humanoid_tpu_torch.scripts import train
+from humanoid_tpu_torch.utils import registry
+task_cfgs = registry.get_cfgs
+
+def get_cfgs(name):
+    env_cfg, train_cfg = task_cfgs(name)
+    return env_cfg, train_cfg.replace(runner=dataclasses.replace(train_cfg.runner,
+                                                                 num_steps_per_env=4))
+
+registry.get_cfgs = get_cfgs
+train.main(["--mesh", "--device", "cpu", "--num-envs", "16", "--max-iterations", "1",
+            "--log-root", sys.argv[1]], log_fn=lambda *a: None)
+print("LEAKED", sorted(m for m in sys.modules
+                       if (m == "humanoid_tpu" or m.startswith("humanoid_tpu."))
+                       or (m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mujoco")
+                           and sys.modules[m] is not None)))
+"""
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
@@ -55,3 +84,13 @@ def test_port_sources_never_name_the_reference_assets():
         with open(path) as f:
             text = f.read()
         assert "reference/resources" not in text and "HUMANOID_TPU_ASSETS" not in text, path
+
+
+def test_a_spawned_rank_imports_nothing_of_jax_or_the_reference(tmp_path):
+    from humanoid_tpu_torch.parallel import dist
+
+    logs = dist.launch(2, ["-c", RANK, str(tmp_path / "runs")], timeout=120,
+                       log_dir=str(tmp_path / "logs"))
+    for r in range(2):
+        with open(os.path.join(logs, f"rank{r}.log")) as f:
+            assert "LEAKED []" in f.read()
