@@ -55,7 +55,23 @@ them; the same bits on both ranks, rank 0 alone saving, B1 60 times per
 iteration on each, B1 against its plain version at 2048 envs), and
 `scripts.bench_scaling` at one rank. `--dist-ranks W` runs W ranks
 instead of two, over NCCL where a card is visible for each (with
-bench_scaling then at 1, 2, 4 ... W cards).
+bench_scaling then at 1, 2, 4 ... W cards). `view` trains humanoid_ppo 1
+iteration and drives the live viewer's session (scripts/view.py
+ViewerSession) on the card at 1 env with its actor: 300 steps on its
+default penalty contact and 300 on the task's PGS, sending the keys
+W S A D Q E Z V P R through handle_key (each checked for what it moves),
+B1 once per step, finite states, the control steps/s printed; then B1's
+penalty instance against its plain version at 1 and 37 envs (the same
+bits on repeat, its graph time). `deploy` builds both native libraries
+with g++ (their seconds printed), holds the humanoid_ppo_terrain world of
+the C++ synthesizer, which the registry builds, to the numpy generator's
+bits on its deterministic columns (both build times printed), and runs
+`train --eval-gate 1 --max-iterations 2` saving every iteration: the hook
+fires at each save (its seconds printed), each gate_policy_<it>.npz and
+NativePolicy on it within 1e-5 of that checkpoint's float32 actor, one
+eval_gate.jsonl record per save (parsed to metrics where MuJoCo imports;
+where it does not, as on the card's machine, each record's error names it,
+`mujoco: absent` is printed and no record counts as a pass).
 A determinism phase runs the control step's PGS and penalty instances
 several times on the same inputs and requires identical outputs (a missing
 sync between the lanes of a team shows as run-to-run differences). Then it
@@ -122,7 +138,7 @@ SMALL_N = (1, 37)                # B1 vs plain where play runs it: 1 env, a tail
 TOL_EXPORT = 1e-5                # the exports against the float32 actor
 PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism",
           "d11_control", "train", "d11_train", "checkpoint", "d11_play", "profile", "dist",
-          "time")
+          "view", "deploy", "time")
 D11_TASK = "d11_ppo"             # the 18-dof robot: nj 18, nb 19, nv 24
 PROFILED_ITERATIONS = 1          # the profile phase: train --profile 1 on humanoid_ppo
 DIST_ITERATIONS = 2              # the dist phase's training runs
@@ -130,6 +146,11 @@ DIST_TIMEOUT = 300               # seconds for the dist phase's ranks, then they
 # the reference package's bound for its sharded run against one device
 # (tests/test_parallel.py), printed beside the 2-rank run's difference
 TOL_SHARDED_PARAMS = 5e-4
+VIEW_STEPS = 300                 # the viewer session's control steps on each contact model
+VIEW_KEYS = "WSADQEZVPR"         # sent through handle_key along the way, one key each
+DEPLOY_ITERATIONS = 2            # train --eval-gate, saving every iteration
+GATE_SECONDS = 1.0               # the gate replay's simulated seconds
+SEED_TERRAIN = 5                 # the deploy phase's humanoid_ppo_terrain world
 
 
 def emit(phase, **fields):
@@ -716,22 +737,30 @@ def checkpoint_phase(train, play, registry, probe, model, inputs, root):
     del resumed
 
     # 5. B1 against its plain version where play runs it: 1 env, and 37 (a tail block)
+    out["b1_small_n_vs_plain"] = small_n_vs_plain(probe, model, inputs, "B1")
+    return out, launches
+
+
+def small_n_vs_plain(kernel, model, inputs, label):
+    """The control-step instance `kernel` against its plain version at each
+    env count of SMALL_N (the first envs of `inputs`), shipping and exact:
+    within the bounds, the same bits on repeat, and its device time under a
+    CUDA graph. Returns {"<shipping|exact>_<n>": result}."""
     small = {}
     for n in SMALL_N:
         pack, masses, friction, targets = inputs
         sub = (pack[:, :n].contiguous(), masses[:n].contiguous(), friction[:n].contiguous(),
                targets[:n].contiguous())
         for name, args in (("shipping", (10, True, True)), ("exact", (1, False, False))):
-            r = compare(probe, model, sub, *args)
-            again = probe(*sub, *args)[0]
-            r["same_bits_on_repeat"] = same_bits(probe(*sub, *args)[0], again)
-            r["ms"] = graph_ms(lambda: probe(*sub, *args), TIMED_LAUNCHES)
+            r = compare(kernel, model, sub, *args)
+            again = kernel(*sub, *args)[0]
+            r["same_bits_on_repeat"] = same_bits(kernel(*sub, *args)[0], again)
+            r["ms"] = graph_ms(lambda: kernel(*sub, *args), TIMED_LAUNCHES)
             small[f"{name}_{n}"] = r
-            check_within(f"B1 {name} at {n} envs", r)
+            check_within(f"{label} {name} at {n} envs", r)
             if not r["same_bits_on_repeat"]:
-                raise AssertionError(f"B1 {name} at {n} envs: other bits on repeat")
-    out["b1_small_n_vs_plain"] = small
-    return out, launches
+                raise AssertionError(f"{label} {name} at {n} envs: other bits on repeat")
+    return small
 
 
 def dist_phase(train, play, registry, probe, model, inputs, root, ranks=2):
@@ -895,6 +924,234 @@ def dist_phase(train, play, registry, probe, model, inputs, root, ranks=2):
     return out, launches
 
 
+def view_phase(train, play, registry, pprobe, model, inputs, root):
+    """The live viewer's session (scripts/view.py ViewerSession) on the card
+    with the actor of humanoid_ppo trained one iteration: VIEW_STEPS steps
+    at 1 env on its default penalty contact, then VIEW_STEPS on the task's
+    PGS, each with the keys VIEW_KEYS sent through handle_key along the way
+    (each moves the command, the sync flag or the state as the reference's
+    viewer tests expect). B1 once per step (play's launch counter), finite
+    states, the session's control steps/s. Then B1-penalty against its plain
+    version at 1 and 37 envs (the first envs of `inputs`): the viewer's size
+    and a tail block. Returns (summary, launches by path)."""
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.scripts.view import ViewerSession
+
+    task, S = "humanoid_ppo", STEPS_PER_ITERATION
+    trained, carry, rows, _ = train_phase(train, registry, task, 1, "view_train", root, n_envs=N)
+    check_training(task, trained, carry, rows, registry.get_cfgs(task)[0], 1,
+                   {"kernel_launches": S, "sampler_launches": 0, "factor_launches": 0,
+                    "apply_launches": 0, "solve_launches": 0}, N)
+    policy = trained.inference_policy()
+    del carry
+    out, launches = {}, {}
+    every = VIEW_STEPS // len(VIEW_KEYS)
+    for contact in ("penalty", None):          # the viewer's default, then the task's PGS
+        name = contact or "pgs"
+        session = ViewerSession(task, [0.5, 0.0, 0.0], load=policy, contact=contact,
+                                device=DEVICE)
+        env = session.env
+        launches0 = play.kernel_launches(env)
+        keys, per_step, finite = {}, [], True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(VIEW_STEPS):
+            if i % every == every // 2:
+                key = VIEW_KEYS[i // every]
+                keys[key] = check_key(session, key)
+            before = env.physics.launches
+            pos, quat, qj = session.step()
+            per_step.append(env.physics.launches - before)
+            finite = finite and bool(np.isfinite(pos).all() and np.isfinite(quat).all()
+                                     and np.isfinite(qj).all())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = {k: v - launches0[k] for k, v in play.kernel_launches(env).items()}
+        launches[f"view {name} 1 env"] = total
+        out[name] = {"contact": env.cfg.sim.contact_model, "envs": env.cfg.env.num_envs,
+                     "design": env.physics.design(), "steps": VIEW_STEPS, "keys": keys,
+                     "launches": total, "b1_once_per_step": per_step == [1] * VIEW_STEPS,
+                     "finite": finite and all(bool(torch.isfinite(x).all())
+                                              for x in session.state.phys),
+                     "wall_s": wall, "control_steps_per_s": VIEW_STEPS / wall,
+                     "final_base_z": float(pos[2])}
+        # the reset (R) steps the env once more: VIEW_STEPS + 1 launches in all
+        if not (out[name]["b1_once_per_step"] and out[name]["finite"]
+                and total["control_step_kernel"] == VIEW_STEPS + 1
+                and all(k["ok"] for k in keys.values()) and sorted(keys) == sorted(VIEW_KEYS)):
+            raise AssertionError(f"view ({name}): {out[name]}")
+        del session, env
+    del trained, policy
+    out["b1_penalty_small_n_vs_plain"] = small_n_vs_plain(pprobe, model, inputs, "B1-penalty")
+    return out, launches
+
+
+def check_key(session, key):
+    """Send `key` through handle_key and check what it moved, as the
+    reference's viewer tests do: W/S, A/D, Q/E step vx, vy, wyaw by 0.1, Z
+    zeroes the command, V flips sync, P kicks the base velocity, R resets
+    (episode length 1, the base back above 0.7 m)."""
+    import numpy as np
+
+    cmd, sync, u = session.cmd.copy(), session.sync, session.state.phys.u[0].clone()
+    session.handle_key(key.lower())
+    delta = {"W": (0, 0.1), "S": (0, -0.1), "A": (1, 0.1), "D": (1, -0.1), "Q": (2, 0.1),
+             "E": (2, -0.1)}
+    rec = {"cmd": session.cmd.tolist(), "sync": session.sync}
+    if key in delta:
+        want = cmd.copy()
+        want[delta[key][0]] += delta[key][1]
+        ok = bool(np.allclose(session.cmd, want, atol=1e-6))
+    elif key == "Z":
+        ok = not session.cmd.any()
+    elif key == "V":
+        ok = session.sync is (not sync) and bool(np.array_equal(session.cmd, cmd))
+    elif key == "P":
+        kick = (session.state.phys.u[0] - u).abs()
+        rec["kick"] = kick[3:5].tolist()
+        ok = float(kick[3:5].max()) > 1e-4 and float(kick[:3].max()) == 0.0
+    else:           # R
+        rec["base_z"] = float(session.state.phys.base_pos[0, 2])
+        ok = int(session.state.episode_length[0]) == 1 and rec["base_z"] > 0.7
+    rec["ok"] = ok
+    return rec
+
+
+def deploy_phase(train, registry, root):
+    """The deploy side on the card's machine: (a) both native libraries
+    (native/terrain.cpp, native/policy_runtime.cpp) built with g++ into a
+    new directory, with their build seconds; (b) the humanoid_ppo_terrain
+    world from build_terrain_native, as the registry builds it, bit-equal
+    to the numpy generator on its deterministic columns, with both build
+    times; (c) `train --eval-gate GATE_SECONDS --max-iterations
+    DEPLOY_ITERATIONS` with save_interval 1 on humanoid_ppo at N envs: the
+    hook fires at each save (its host seconds per save printed), each
+    gate_policy_<it>.npz within TOL_EXPORT of that checkpoint's float32
+    actor, and so is NativePolicy on it, eval_gate.jsonl one record per
+    save: parsed to metrics where mujoco imports, else an error naming it
+    (then `mujoco: absent`, and no record counts as a pass). Returns the
+    summary."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from humanoid_tpu_torch.deploy.eval_gate import CheckpointEvalGate
+    from humanoid_tpu_torch.deploy.npz_policy import NpzPolicy
+    from humanoid_tpu_torch.env.terrain import build_terrain
+    from humanoid_tpu_torch.native import build as native_build
+    from humanoid_tpu_torch.native.policy_native import NativePolicy
+    from humanoid_tpu_torch.native.terrain_native import build_terrain_native
+    from humanoid_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    # (a) g++ builds, from nothing
+    built = {name: native_build.build(name, build_dir=os.path.join(root, "native"))
+             for name in ("terrain", "policy_runtime")}
+    out["native_build_s"] = {name: b.seconds for name, b in built.items()}
+    try:
+        import mujoco  # noqa: F401
+        out["mujoco"] = "present"
+    except ImportError:
+        out["mujoco"] = "absent"
+    print(f"mujoco: {out['mujoco']}", flush=True)
+
+    # (b) the terrain world the registry builds (its library loaded first:
+    # the seconds are the world's alone)
+    tc = registry.get_cfgs("humanoid_ppo_terrain")[0].terrain
+    native_build.load_library("terrain")
+    t0 = time.perf_counter()
+    native = build_terrain_native(tc, seed=SEED_TERRAIN)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = build_terrain(tc, seed=SEED_TERRAIN)
+    plain_s = time.perf_counter() - t0
+    size = int(tc.terrain_length / tc.horizontal_scale)
+    b = int(tc.border_size / tc.horizontal_scale)
+    props = np.cumsum(tc.terrain_proportions)
+    cols = [j for j in range(tc.num_cols)
+            if (j / tc.num_cols + 0.001) < props[0]
+            or props[2] <= j / tc.num_cols + 0.001 < props[6]]
+    same = {j: native.height[b:b + tc.num_rows * size, b + j * size:b + (j + 1) * size].tobytes()
+            == plain.height[b:b + tc.num_rows * size, b + j * size:b + (j + 1) * size].tobytes()
+            for j in cols}
+    out["terrain"] = {"raster": list(native.height.shape), "deterministic_columns": cols,
+                      "bit_equal_columns": same, "native_s": native_s, "numpy_s": plain_s,
+                      "cells_differing": float((native.height != plain.height).mean())}
+    if not cols or not all(same.values()) or native.height.shape != plain.height.shape:
+        raise AssertionError(f"deploy: the native world is not the numpy one where it should "
+                             f"be: {out['terrain']}")
+
+    # (c) train --eval-gate, saving every iteration
+    task, its = "humanoid_ppo", DEPLOY_ITERATIONS
+    task_cfgs, hook = registry.get_cfgs, CheckpointEvalGate.__call__
+    fired = []
+
+    def every_iteration(name):
+        e, t = task_cfgs(name)
+        return e, t.replace(runner=dataclasses.replace(t.runner, save_interval=1))
+
+    def timed_hook(gate, runner, path, iteration):
+        t0 = time.perf_counter()
+        hook(gate, runner, path, iteration)
+        fired.append({"iteration": iteration, "path": os.path.basename(path),
+                      "s": time.perf_counter() - t0})
+
+    registry.get_cfgs, CheckpointEvalGate.__call__ = every_iteration, timed_hook
+    try:
+        t0 = time.perf_counter()
+        runner, carry, rows, _ = train_phase(train, registry, task, its, "deploy_train",
+                                             os.path.join(root, "runs"), n_envs=N,
+                                             argv=("--eval-gate", str(GATE_SECONDS)))
+        wall = time.perf_counter() - t0
+    finally:
+        registry.get_cfgs, CheckpointEvalGate.__call__ = task_cfgs, hook
+    check_training(task, runner, carry, rows, task_cfgs(task)[0], its,
+                   {"kernel_launches": STEPS_PER_ITERATION, "sampler_launches": 0,
+                    "factor_launches": 0, "apply_launches": 0, "solve_launches": 0}, N)
+    run = runner.log_dir
+    jsonl = os.path.join(run, "eval_gate.jsonl")
+    records = []
+    if os.path.isfile(jsonl):
+        with open(jsonl) as f:
+            records = sorted((json.loads(line) for line in f), key=lambda r: r["iteration"])
+    f32 = copy.deepcopy(runner.net).cpu()
+    f32.compute_dtype = torch.float32
+    obs = np.random.default_rng(5).normal(size=(256, f32.actor.layers[0].in_features)).astype(
+        np.float32)
+    exports = {}
+    for it in range(1, its + 1):
+        f32.load_state_dict(load_checkpoint(os.path.join(run, f"model_{it}"))["model"])
+        with torch.no_grad():
+            want = f32.act_mean(torch.as_tensor(obs)).numpy()
+        npz = os.path.join(run, f"gate_policy_{it}.npz")
+        got_npz, got_native = NpzPolicy(npz)(obs), NativePolicy(npz)(obs)
+        exports[it] = {"npz_vs_float32_actor": float(np.abs(got_npz - want).max()),
+                       "native_vs_float32_actor": float(np.abs(got_native - want).max()),
+                       "native_vs_npz": float(np.abs(got_native - got_npz).max())}
+    metrics_keys = {"survived_s", "distance_m", "mean_speed", "final_base_z"}
+    if out["mujoco"] == "present":
+        records_ok = all(metrics_keys <= set(r) and "error" not in r for r in records)
+    else:
+        records_ok = all(not r["passed"] and "mujoco" in r.get("error", "") for r in records)
+    out["gate"] = {"iterations": its, "gate_seconds": GATE_SECONDS, "train_wall_s": wall,
+                   "hook_fired": fired, "hook_s_per_save": [f["s"] for f in fired],
+                   "records": records, "passes_counted": sum(bool(r.get("passed"))
+                                                             for r in records),
+                   "exports": exports, "records_ok": records_ok}
+    if out["mujoco"] == "absent":
+        out["gate"]["passes_counted"] = 0
+    ok = ([f["iteration"] for f in fired] == list(range(1, its + 1))
+          and [r["iteration"] for r in records] == list(range(1, its + 1)) and records_ok
+          and all(v <= TOL_EXPORT for e in exports.values() for v in e.values()))
+    if not ok:
+        raise AssertionError(f"deploy: the eval gate failed a check: {out['gate']}")
+    return out
+
+
 def trace_summary(path, top=5):
     """The device ops of a torch.profiler trace (kernels, copies, memsets)
     with the most total time, and the share of the `rollout` span's wall
@@ -990,10 +1247,10 @@ def run(phases, log_root, dist_ranks=2):
     wall = time.perf_counter() - t0
     ptxas = {}
     for src in sources:
-        ptxas.update(ptxas_summary(built[src].ptxas))
+        ptxas.update(ptxas_summary(built[src].log))
         emit("build", source=f"humanoid_tpu_torch/csrc/{src}", nvcc_s=built[src].seconds,
-             all_builds_wall_s=wall, kernels=ptxas_summary(built[src].ptxas),
-             ptxas=list(built[src].ptxas))
+             all_builds_wall_s=wall, kernels=ptxas_summary(built[src].log),
+             ptxas=list(built[src].log))
 
     # ---- settled robots on the flat plane: the inputs of phases 2 and 3 ----
     env_cfg, _ = registry.get_cfgs("humanoid_ppo")
@@ -1382,6 +1639,26 @@ def run(phases, log_root, dist_ranks=2):
         emit("dist", task="humanoid_ppo", envs=N, launches=dist_launches,
              wall_s=summaries["dist"]["wall_s"], **dist_out)
 
+    # ---- 4f. the live viewer's session on the card (B1-penalty and B1 at
+    # 1 env) and B1-penalty against its plain version at 1 and 37 envs ----
+    view_out = None
+    if "view" in phases:
+        t_path = time.perf_counter()
+        view_out, view_launches = view_phase(train, play, registry, pprobe, model, on_flat,
+                                             os.path.join(log_root, "view"))
+        launches.update(view_launches)
+        summaries["view"] = {"wall_s": time.perf_counter() - t_path}
+        emit("view", task="humanoid_ppo", launches=view_launches,
+             wall_s=summaries["view"]["wall_s"], **view_out)
+
+    # ---- 4g. the deploy side: g++ builds, the native terrain world, and
+    # train --eval-gate with its hook, exports and records ----
+    if "deploy" in phases:
+        t_path = time.perf_counter()
+        deploy_out = deploy_phase(train, registry, os.path.join(log_root, "deploy"))
+        summaries["deploy"] = {"wall_s": time.perf_counter() - t_path}
+        emit("deploy", task="humanoid_ppo", wall_s=summaries["deploy"]["wall_s"], **deploy_out)
+
     # ---- 5. kernel times against their bounds ----
     timing = {}
     if "time" in phases:
@@ -1501,7 +1778,8 @@ def run(phases, log_root, dist_ranks=2):
     if set(PHASES) <= phases:
         print(json.dumps(kernel_table(results, timing, launches, sampler_err, linalg_err,
                                       linalg18_err, sweeps, n=model.nv, design={
-                                          "pgs": probe.design(), "penalty": pprobe.design()})),
+                                          "pgs": probe.design(), "penalty": pprobe.design()},
+                                      penalty_small=view_out["b1_penalty_small_n_vs_plain"])),
               flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -1513,9 +1791,10 @@ def is_18dof(path):
 
 
 def kernel_table(results, timing, launches, sampler_err, linalg_err, linalg18_err, sweeps, n,
-                 design):
+                 design, penalty_small):
     """The kernels line: one row per kernel on the 12-dof robot, the control
-    step's instances inside its row, then the rows of the kernels at the
+    step's instances inside its row (the penalty instance with its readings
+    at the viewer's 1 env and at 37), then the rows of the kernels at the
     18-dof robot's widths (nj = 18, n = 24), with the launches of its paths."""
     def row(name, result, t, **more):
         return {"max_abs_err": result, "ms": t["ms"], "eager_ms": t["eager_ms"],
@@ -1582,8 +1861,11 @@ def kernel_table(results, timing, launches, sampler_err, linalg_err, linalg18_er
                 launches=cs_launches["humanoid_ppo_terrain"]),
             "penalty_instance": row(
                 "pgs=0 decimation=10 freeze=1", results["penalty"]["max_abs_err"],
-                timing["penalty"], launches=cs_launches["humanoid_ppo_penalty"],
-                replaces="humanoid_tpu/ops/physics_kernel.py:719"),
+                timing["penalty"],
+                launches=cs_launches["humanoid_ppo_penalty"] + cs_launches["view penalty 1 env"],
+                replaces="humanoid_tpu/ops/physics_kernel.py:719",
+                small_n={k: {"max_abs_err": r["max_abs_err"], "ms": r["ms"]}
+                         for k, r in penalty_small.items()}),
             "warm_instance": row(
                 f"decimation=10 freeze=1 freeze_prep=1 sweeps={sweeps} warm=1",
                 results["warm"]["max_abs_err"], timing["warm"],

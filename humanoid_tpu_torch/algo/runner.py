@@ -110,6 +110,9 @@ class OnPolicyRunner:
             self.obs_perm = torch.as_tensor(obs_perm, device=self.device)
             self.act_perm = torch.as_tensor(act_perm, device=self.device)
         self.iteration = 0
+        # the checkpoint hook: on_checkpoint(runner, checkpoint path, iteration),
+        # called by `save` on rank 0 (deploy/eval_gate.py's CheckpointEvalGate)
+        self.on_checkpoint = None
 
     def _sampler_launches(self) -> int:
         return self.env.sampler.launches if self.env.sampler is not None else 0
@@ -299,11 +302,15 @@ class OnPolicyRunner:
 
     def save(self, path: Optional[str] = None) -> str:
         """The model, Adam and the iteration, to `path` (default
-        <log_dir>/model_<it>) + ".pt"."""
+        <log_dir>/model_<it>) + ".pt"; then, on rank 0, the checkpoint hook
+        `on_checkpoint` where one is set."""
         from ..utils.checkpoint import save_checkpoint
 
-        path = path or os.path.join(self.log_dir, f"model_{self.iteration}")
-        return save_checkpoint(path, self._payload())
+        path = save_checkpoint(path or os.path.join(self.log_dir, f"model_{self.iteration}"),
+                               self._payload())
+        if self.on_checkpoint is not None and (self.shard is None or self.shard.rank == 0):
+            self.on_checkpoint(self, path, self.iteration)
+        return path
 
     def load(self, path: str, load_optimizer: bool = True) -> None:
         from ..utils.checkpoint import load_checkpoint

@@ -18,11 +18,22 @@ load: nj=18, nb=19, nv=24, 65x15 actor and 97x3 critic observations.
 are typed `fixed`, to `revolute`.
 
 Pass the real file with `--urdf PATH` once it is in the repository.
+
+The shipped XBot-L MJCFs (`XBot-L.xml`, and `XBot-L-terrain.xml` with its
+`uneven.png` hfield) are data this repository does not ship either.
+`xbot_mjcf` finds them under the asset root, in the reference package's
+layout (`robots/XBot/mjcf/...`): $HUMANOID_TPU_ASSETS, as for the
+reference package, else `resources/` at the root of the repository, and
+raises FileNotFoundError naming the missing file. Replays of the port's
+own robots use the MJCF `physics/mjcf_export.py` writes instead.
 """
 from __future__ import annotations
 
 import os
 import re
+import tempfile
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Actuated dof order used everywhere (the upstream MuJoCo actuator order).
 XBOT_JOINT_ORDER = (
@@ -247,3 +258,37 @@ def load_robot(urdf_path: str, asset_cfg, armature: float, joint_order=None):
         terminate_on=asset_cfg.terminate_after_contacts_on,
         armature=armature,
     )
+
+
+def asset_root() -> str:
+    """$HUMANOID_TPU_ASSETS, else <repo>/resources."""
+    return os.environ.get("HUMANOID_TPU_ASSETS", os.path.join(REPO_ROOT, "resources"))
+
+
+def xbot_mjcf(terrain: bool = False) -> str:
+    """The path of the shipped XBot-L MJCF (with `terrain`, its hfield
+    variant) under the asset root; FileNotFoundError where it is missing."""
+    name = "XBot-L-terrain.xml" if terrain else "XBot-L.xml"
+    path = os.path.join(asset_root(), "robots", "XBot", "mjcf", name)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{path}: the shipped XBot-L MJCF is not in the repository "
+                                "(set HUMANOID_TPU_ASSETS to a directory that holds "
+                                "robots/XBot/mjcf/)")
+    return path
+
+
+def prepare_mujoco_xml(mjcf_path: str) -> str:
+    """A loadable copy of a shipped XBot MJCF: without its MuJoCo-2.x-only
+    `sensornoise` flag, written into a new temporary directory beside links
+    to the file's `meshes` and `terrain` directories (it names them by
+    relative paths)."""
+    with open(mjcf_path) as f:
+        src = re.sub(r'sensornoise="[^"]*"', "", f.read())
+    tmp = tempfile.mkdtemp(prefix="xbot_mjcf_")
+    robot_dir = os.path.dirname(os.path.dirname(os.path.abspath(mjcf_path)))
+    os.makedirs(os.path.join(tmp, "mjcf"))
+    for sub in ("meshes", "terrain"):
+        target = os.path.join(robot_dir, sub)
+        if os.path.isdir(target):
+            os.symlink(target, os.path.join(tmp, sub))
+    return _write_text(os.path.join(tmp, "mjcf", os.path.basename(mjcf_path)), src)

@@ -4,6 +4,8 @@
 (no PyTorch headers, no ninja), which ctypes then loads. The library's name
 carries a hash of the source and the flags, so an unchanged source is built
 once per checkout; builds land in humanoid_tpu_torch/_build/ (git-ignored).
+`start_build` and `Compile.finish` (hash, temporary file, rename, load) also
+build native/'s C++ sources with g++ (native/build.py).
 """
 from __future__ import annotations
 
@@ -29,9 +31,58 @@ NVCC_FLAGS = (
 class BuiltLibrary:
     lib: ctypes.CDLL
     path: str
-    seconds: float          # nvcc wall time; 0.0 when the library was already built
-    ptxas: tuple            # nvcc's report, -Xptxas -v included (registers, stack, spills),
-                            # kept beside the library for a later load
+    seconds: float          # compiler wall time; 0.0 when the library was already built
+    log: tuple              # the compiler's output: nvcc's holds the -Xptxas -v report
+                            # (registers, stack, spills), kept beside the library for a
+                            # later load
+
+
+@dataclasses.dataclass
+class Compile:
+    """One compiler run that `start_build` began into `out`; `proc` is None
+    when `out` was built already."""
+    src: str
+    out: str
+    compiler: str = ""
+    proc: subprocess.Popen | None = None
+    tmp: str = ""
+    t0: float = 0.0
+
+    def finish(self) -> BuiltLibrary:
+        """Wait for the compiler, move its output into place and load it.
+        A failed build raises with the compiler's output."""
+        seconds, log = 0.0, ()
+        if self.proc is not None:
+            text = self.proc.communicate()[0]
+            seconds = time.perf_counter() - self.t0
+            if self.proc.returncode != 0:
+                raise RuntimeError(f"{os.path.basename(self.compiler)} failed on {self.src} "
+                                   f"(rc {self.proc.returncode}):\n" + text)
+            log = tuple(line.strip() for line in text.splitlines() if line.strip())
+            os.replace(self.tmp, self.out)      # another process may load the same path
+        return BuiltLibrary(lib=ctypes.CDLL(self.out), path=self.out, seconds=seconds, log=log)
+
+
+def start_build(compiler: str, flags, src: str, build_dir=None) -> Compile:
+    """Start `compiler flags -o <tmp> src` unless `build_dir` (default
+    BUILD_DIR) already holds <stem>_<hash>.so, the hash covering the source
+    and the flags; the caller ends it with `finish`. A compiler that cannot
+    be run raises."""
+    build_dir = build_dir or BUILD_DIR
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(build_dir, f"{stem}_{digest}.so")
+    if os.path.exists(out):
+        return Compile(src, out)
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.Popen([compiler, *flags, "-o", tmp, src], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {compiler} to build {src}: {e}") from e
+    return Compile(src, out, compiler, proc, tmp, time.perf_counter())
 
 
 def ptxas_summary(lines) -> dict:
@@ -76,46 +127,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _target(source: str):
-    src_path = os.path.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    stem = os.path.splitext(source)[0]
-    return src_path, os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
-
-
 def build_all(sources) -> dict:
     """Compile every csrc/<source> not built yet, one nvcc each, all started
     together, and load them. Returns {source: BuiltLibrary}."""
-    started = {}
-    for source in sources:
-        src_path, out = _target(source)
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            started[source] = (proc, tmp, out, time.perf_counter())
+    started = {source: start_build(find_nvcc(), NVCC_FLAGS, os.path.join(CSRC_DIR, source))
+               for source in sources}
     built = {}
-    for source in sources:
-        seconds, ptxas = 0.0, ()
-        if source in started:
-            proc, tmp, out, t0 = started[source]
-            log = proc.communicate()[0].splitlines()
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n"
-                                   + "\n".join(log))
-            ptxas = tuple(line.strip() for line in log if line.strip())
-            with open(f"{out}.ptxas", "w") as f:
-                f.write("\n".join(ptxas))
-            os.replace(tmp, out)
-        out = _target(source)[1]
-        if not ptxas and os.path.exists(f"{out}.ptxas"):
-            with open(f"{out}.ptxas") as f:
-                ptxas = tuple(f.read().splitlines())
-        built[source] = BuiltLibrary(lib=ctypes.CDLL(out), path=out, seconds=seconds,
-                                     ptxas=ptxas)
+    for source, run in started.items():
+        info = run.finish()
+        report = f"{info.path}.ptxas"
+        if info.log:
+            with open(report, "w") as f:
+                f.write("\n".join(info.log))
+        elif os.path.exists(report):
+            with open(report) as f:
+                info.log = tuple(f.read().splitlines())
+        built[source] = info
     return built
 
 

@@ -3,7 +3,7 @@ package's scripts/play.py).
 
   python -m humanoid_tpu_torch.scripts.play --task humanoid_ppo \
       [--log-root DIR] [--load-run RUN] [--checkpoint IT] [--num-envs 1] \
-      [--steps 300] [--cmd 0.5 0.0 0.0] [--out-dir DIR] [--device cuda]
+      [--steps 300] [--cmd 0.5 0.0 0.0] [--out-dir DIR] [--device cuda] [--video]
 
 Loads the checkpoint that `get_load_path` resolves under
 <log-root>/<experiment> (the latest run and its highest model_<it> by
@@ -15,7 +15,10 @@ friction, base-mass or dynamic randomization, no action delay). It writes
 `openloop_action.npz` (env 0's first 100 actions), the traces of env 0 in
 `eval_states.npz` and, where matplotlib imports, the dashboard `eval.png`,
 all into --out-dir (default: <run dir>/play). The traces stay on the
-device during the rollout and are copied off once at the end.
+device during the rollout and are copied off once at the end. `--video`
+also records `play.mp4`: env 0 every 3 control steps, rendered offscreen
+(deploy/video.py; MuJoCo, OpenCV and GL, EGL by default) on the MJCF that
+physics/mjcf_export.py writes for the played robot (`play_robot.xml`).
 
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
@@ -33,6 +36,7 @@ TRACE_KEYS = ("dof_pos", "dof_pos_target", "dof_vel", "base_vel_x", "base_vel_y"
               "base_vel_yaw", "command_x", "command_y", "command_yaw", "base_height")
 TRACED_JOINT = 2
 OPENLOOP_STEPS = 100
+VIDEO_EVERY = 3             # control steps per video frame: ~33 fps at 100 Hz
 
 
 def get_args(argv=None):
@@ -49,6 +53,9 @@ def get_args(argv=None):
     p.add_argument("--urdf", default=None,
                    help="robot URDF (default: the task's stand-in; on an 18-dof task, a "
                         "URDF with fixed arm joints, which are made revolute)")
+    p.add_argument("--video", action="store_true",
+                   help="record a camera-follow mp4 of env 0 (an offscreen MuJoCo replay of "
+                        "the rollout)")
     return p.parse_args(argv)
 
 
@@ -75,7 +82,7 @@ def main(argv=None):
     """Export and roll out; returns {"final_z", "npz", "kernel_launches"
     (the control-step kernel's launches in the `--steps` loop), "launches"
     (every kernel's, by name), "steps", "rollout_s", "steps_per_s",
-    "finite", "out_dir"}."""
+    "finite", "out_dir", "video" (the mp4's path, or None)}."""
     from ..algo.runner import OnPolicyRunner
     from ..deploy.export import export_policy_npz, export_policy_onnx, export_policy_torchscript
     from ..physics.spatial import quat_rotate_inverse
@@ -112,6 +119,8 @@ def main(argv=None):
     cmd = torch.tensor(args.cmd + [0.0], device=device).expand(N, 4).contiguous()
     actions = torch.zeros(min(T, OPENLOOP_STEPS), env.nj, device=device)
     traces = torch.zeros(T, len(TRACE_KEYS), device=device)
+    # env 0's base position, orientation and joints every VIDEO_EVERY steps
+    frames = torch.zeros(-(-T // VIDEO_EVERY) if args.video else 0, 7 + env.nj, device=device)
     with torch.no_grad():
         state = env.initial_state(gen)
         state, out = env.step(state, torch.zeros(N, env.nj, device=device), gen)
@@ -131,6 +140,8 @@ def main(argv=None):
             traces[i] = torch.cat([p.qj[0, j:j + 1], action[0, j:j + 1] * 0.25,
                                    p.u[0, 6 + j:7 + j], v_body, w_body[2:3], cmd[0, 0:3],
                                    p.base_pos[0, 2:3]])
+            if args.video and i % VIDEO_EVERY == 0:
+                frames[i // VIDEO_EVERY] = torch.cat([p.base_pos[0], p.base_quat[0], p.qj[0]])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         rollout_s = time.perf_counter() - t0
@@ -142,6 +153,9 @@ def main(argv=None):
     np.savez(os.path.join(out_dir, "openloop_action.npz"), action=actions.cpu().numpy())
     logger.save_states(os.path.join(out_dir, "eval_states.npz"))
     png = logger.plot_states(os.path.join(out_dir, "eval.png"))
+    video = None
+    if args.video:
+        video = record_video(env, frames.cpu().numpy(), out_dir)
     p = state.phys
     finite = bool(all(torch.isfinite(x).all() for x in p))
     z = float(p.base_pos[0, 2])
@@ -150,7 +164,25 @@ def main(argv=None):
     return {"final_z": z, "npz": npz_path, "kernel_launches": launches["control_step_kernel"],
             "launches": launches, "steps": T,
             "rollout_s": rollout_s, "steps_per_s": T / rollout_s, "finite": finite,
-            "out_dir": out_dir}
+            "out_dir": out_dir, "video": video}
+
+
+def record_video(env, frames, out_dir: str) -> str:
+    """`play.mp4` of the rows [base_pos, base_quat, qj] of `frames`,
+    rendered on the MJCF exported from the env's robot (play_robot.xml)."""
+    from ..assets import _write_text
+    from ..deploy.video import VideoRecorder
+    from ..physics.mjcf_export import model_to_mjcf
+
+    mjcf = _write_text(os.path.join(out_dir, "play_robot.xml"),
+                       model_to_mjcf(env.model, with_floor=True))
+    recorder = VideoRecorder(os.path.join(out_dir, "play.mp4"), mjcf,
+                             fps=1.0 / (VIDEO_EVERY * env.dt))
+    for row in frames:
+        recorder.add_state(row[0:3], row[3:7], row[7:])
+    path = recorder.close()
+    print(f"video: {path} ({recorder.frames} frames)", flush=True)
+    return path
 
 
 if __name__ == "__main__":

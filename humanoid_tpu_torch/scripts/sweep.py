@@ -25,7 +25,10 @@ Usage:
       --spec sweep.json --max-iterations 500 [--num-envs 8192] [--device cpu]
   torchrun --nproc-per-node G -m humanoid_tpu_torch.scripts.sweep --multihost ...
 
-`--eval-gate` (the MuJoCo sim2sim gate on each point) is not ported yet.
+`--eval-gate [SECONDS]` (default 10) runs the MuJoCo sim2sim gate
+(deploy/eval_gate.py) on each checkpoint of each point, on the MJCF
+exported from the task's robot; a point's `gate_passed` says whether every
+one of its replays passed.
 """
 from __future__ import annotations
 
@@ -47,7 +50,9 @@ def parse_args(argv=None):
     p.add_argument("--max-iterations", dest="max_iterations", type=int, default=500)
     p.add_argument("--log-root", dest="log_root", default=None)
     p.add_argument("--eval-gate", dest="eval_gate", nargs="?", const=10.0, type=float,
-                   default=None, help="not ported yet (ROADMAP.md A.7)")
+                   default=None, metavar="SECONDS",
+                   help="replay each checkpoint in MuJoCo for SECONDS (default 10) of sim "
+                        "time (the sim2sim gate)")
     p.add_argument("--multihost", action="store_true",
                    help="take rank and world from the launcher's environment (torchrun); "
                         "the ranks split the grid")
@@ -97,9 +102,6 @@ def apply_point(env_cfg, train_cfg, point: dict):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.eval_gate is not None:
-        raise NotImplementedError("--eval-gate: the sim2sim gate is not ported yet "
-                                  "(ROADMAP.md, Queue A, A.7)")
     from ..deploy.export import export_policy_npz
     from ..parallel import dist
     from ..utils import registry
@@ -131,6 +133,12 @@ def main(argv=None):
         train_cfg = _set_path(train_cfg, "runner.run_name", f"sweep{rank}_{idx}")
         env, env_cfg, _ = registry.make_env(args.task, device=device, env_cfg=env_cfg)
         runner = registry.make_alg_runner(env, train_cfg, log_root=log_root)
+        gate = None
+        if args.eval_gate:
+            from ..deploy.eval_gate import CheckpointEvalGate
+
+            gate = CheckpointEvalGate(runner.log_dir, duration=args.eval_gate, task=args.task)
+            runner.on_checkpoint = gate
         logger = TrainLogger(runner.log_dir, env.reward_names, env_cfg, train_cfg)
         last = {}
 
@@ -142,6 +150,8 @@ def main(argv=None):
         try:
             runner.learn(args.max_iterations, log_fn=log_fn)
         finally:
+            if gate is not None:
+                gate.wait_all()
             logger.close()
         # the point's final actor, for the judges downstream
         final_npz = export_policy_npz(runner.net, os.path.join(runner.log_dir,
@@ -151,7 +161,8 @@ def main(argv=None):
             "iterations": args.max_iterations, "wall_s": round(time.time() - t0, 1),
             "mean_reward": last.get("Train/mean_reward"),
             "mean_episode_length": last.get("Train/mean_episode_length"),
-            "fps": last.get("Perf/total_fps"), "gate_passed": None,
+            "fps": last.get("Perf/total_fps"),
+            "gate_passed": None if gate is None else all(r["passed"] for r in gate.results),
         }
         with open(results_path, "a") as f:
             f.write(json.dumps(rec) + "\n")

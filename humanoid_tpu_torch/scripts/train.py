@@ -3,7 +3,7 @@
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH] \
       [--log-root DIR] [--experiment-name NAME] [--run-name NAME] [--full-state] \
-      [--profile N] [--mesh [--multihost]]
+      [--profile N] [--mesh [--multihost]] [--eval-gate [SECONDS]] [--wandb]
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo --resume \
       [--load-run RUN] [--checkpoint IT] --max-iterations 100
 
@@ -44,6 +44,14 @@ and saves; `--full-state` saves no exact state over several ranks.
 `--multihost` requires the launcher's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), for ranks on
 several nodes, and raises without it.
+
+`--eval-gate [SECONDS]` replays every saved checkpoint in MuJoCo for
+SECONDS of simulated time (default 60) in a CPU subprocess
+(deploy/eval_gate.py; MuJoCo must import there), while training goes on;
+the verdicts land in <run dir>/eval_gate.jsonl, and the run waits for the
+last of them before it returns. `--wandb` mirrors the logged scalars to an
+offline wandb run, and goes on without where wandb does not import. Rank 0
+alone owns the gate and the logger.
 
 Runs on the card unless `--device cpu` is given; without a card it raises.
 """
@@ -91,6 +99,13 @@ def get_args(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="take the ranks from the launcher's environment (torchrun), and fail "
                         "without it (use with --mesh)")
+    p.add_argument("--eval-gate", dest="eval_gate", nargs="?", const=60.0, type=float,
+                   default=None, metavar="SECONDS",
+                   help="replay every checkpoint in MuJoCo in a CPU subprocess (the sim2sim "
+                        "gate); the optional value is the replay's length in sim seconds")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror the logged scalars to an offline wandb run (goes on without "
+                        "where wandb does not import)")
     return p.parse_args(argv)
 
 
@@ -165,9 +180,16 @@ def _train(args, device, log_fn):
                 print(f"resuming from {resume_from}", flush=True)
             runner.load(resume_from)
     total = train_cfg.runner.max_iterations
-    # rank 0 alone logs and prints
-    logger = TrainLogger(runner.log_dir, env.reward_names, env_cfg, train_cfg) \
-        if main_rank else None
+    # rank 0 alone logs, prints and runs the eval gate
+    logger = TrainLogger(runner.log_dir, env.reward_names, env_cfg, train_cfg,
+                         use_wandb=args.wandb) if main_rank else None
+    gate = None
+    if args.eval_gate and runner.log_dir and main_rank:
+        from ..deploy.eval_gate import CheckpointEvalGate
+
+        gate = CheckpointEvalGate(runner.log_dir, duration=args.eval_gate, task=args.task,
+                                  extra_argv=("--urdf", args.urdf) if args.urdf else ())
+        runner.on_checkpoint = gate
 
     def console(it, m, fps):
         print(json.dumps({
@@ -205,6 +227,11 @@ def _train(args, device, log_fn):
         else:
             carry = runner.learn(total, log_fn=on_iteration, carry=carry)
     finally:
+        if gate is not None:
+            gate.wait_all()
+            n_pass = sum(1 for r in gate.results if r.get("passed"))
+            print(f"[eval-gate] {n_pass}/{len(gate.results)} checkpoints passed "
+                  f"({gate.jsonl_path})", flush=True)
         if logger is not None:
             logger.close()
     return runner, carry

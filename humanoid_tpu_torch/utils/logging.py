@@ -6,7 +6,9 @@ Each iteration's scalars (`Loss/*`, `Policy/*`, `Train/*`, `Perf/*`, the
 terrain curriculum's `Train/terrain_level_*` where levels are non-zero, and
 `Episode/rew_<name>`) are appended to `<run>/metrics.jsonl`, and written to
 tensorboard where `torch.utils.tensorboard` imports. `console()` formats
-the reference's console block.
+the reference's console block. With `use_wandb` (train --wandb) they also
+go to a wandb run of the experiment, offline unless WANDB_MODE says
+otherwise; where wandb does not import, the run goes on without it.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Optional
 
 
 class TrainLogger:
-    def __init__(self, log_dir: Optional[str], reward_names, env_cfg, train_cfg):
+    def __init__(self, log_dir: Optional[str], reward_names, env_cfg, train_cfg,
+                 use_wandb: bool = False):
         self.log_dir = log_dir
         self.reward_names = list(reward_names)
         self.episode_length_s = env_cfg.env.episode_length_s
@@ -27,6 +30,7 @@ class TrainLogger:
         self.t_start = time.time()
         self.writer = None
         self.jsonl = None
+        self.wandb = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
@@ -36,6 +40,15 @@ class TrainLogger:
                 self.writer = SummaryWriter(log_dir=log_dir, flush_secs=10)
             except ImportError:       # no tensorboard package: metrics.jsonl only
                 pass
+            if use_wandb:
+                try:
+                    import wandb
+                except ImportError:
+                    print("--wandb: wandb does not import; logging without it", flush=True)
+                else:
+                    self.wandb = wandb.init(project=train_cfg.runner.experiment_name,
+                                            name=os.path.basename(log_dir), dir=log_dir,
+                                            mode=os.environ.get("WANDB_MODE", "offline"))
 
     def log(self, it: int, metrics, fps: float, iter_time: float) -> dict:
         m = metrics
@@ -70,6 +83,8 @@ class TrainLogger:
         if self.jsonl is not None:
             self.jsonl.write(json.dumps({"it": it, **scalars}) + "\n")
             self.jsonl.flush()
+        if self.wandb is not None:
+            self.wandb.log(scalars, step=it)
         return scalars
 
     def console(self, it: int, total_iters: int, scalars: dict) -> str:
@@ -102,3 +117,5 @@ class TrainLogger:
             self.writer.close()
         if self.jsonl is not None:
             self.jsonl.close()
+        if self.wandb is not None:
+            self.wandb.finish()

@@ -207,17 +207,18 @@ def robot(env_cfg: XBotLCfg, urdf: Optional[str] = None):
 def build_env(env_cfg: XBotLCfg, urdf: str, device="cuda", joint_order=None, shard=None):
     """The env of a config on the robot `urdf` (in `joint_order`, else in
     document order), on this rank's `shard` of the envs when given: on a
-    heightfield or trimesh task, the world from the port's numpy generator
-    (seeded by the config), with trimesh's vertical faces at
-    slope_treshold x horizontal_scale of rise per cell."""
-    from ..env.terrain import build_terrain
+    heightfield or trimesh task, the world from the C++ synthesizer
+    (native/terrain_native.py, seeded by the config, as the reference
+    builds it), with trimesh's vertical faces at slope_treshold x
+    horizontal_scale of rise per cell."""
     from ..env.xbotl import XBotLEnv
+    from ..native.terrain_native import build_terrain_native
     from ..physics.contact import Terrain
 
     tc = env_cfg.terrain
     if tc.mesh_type not in ("heightfield", "trimesh"):
         return XBotLEnv(env_cfg, urdf, device=device, joint_order=joint_order, shard=shard)
-    world = build_terrain(tc, seed=env_cfg.seed)
+    world = build_terrain_native(tc, seed=env_cfg.seed)
     wall_thresh = tc.slope_treshold * tc.horizontal_scale if tc.mesh_type == "trimesh" else 0.0
     terrain = Terrain.heightfield(world.height, world.horizontal_scale, world.border,
                                   wall_thresh=wall_thresh, device=device)

@@ -10,7 +10,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "mujoco", "onnx", "wandb", "tensorboard"):
+for name in ("jax", "jaxlib", "flax", "optax", "mujoco", "onnx", "wandb", "tensorboard", "cv2",
+             "PIL", "pygame"):
     sys.modules[name] = None
 sys.path.insert(0, sys.argv[1])
 import humanoid_tpu_torch
@@ -29,11 +30,15 @@ sys.exit(1 if leaked else 0)
 """
 
 
-# the modules of the 18-dof and the data-parallel slices, walked and
-# imported like every other one
+# the modules of the 18-dof, the data-parallel and the deploy slices, walked
+# and imported like every other one (the deploy side imports mujoco, cv2,
+# PIL, pygame and wandb inside the functions that use them)
 NEW_MODULES = ("assets", "utils.profiling", "env.vec_env", "utils.calculate_gait",
                "physics.mjcf_export", "parallel.dist", "parallel.mesh", "parallel.rank_view",
-               "scripts.sweep", "scripts.bench_scaling")
+               "scripts.sweep", "scripts.bench_scaling",
+               "native", "native.build", "native.terrain_native", "native.policy_native",
+               "deploy.sim2sim", "deploy.gate_matrix", "deploy.eval_gate",
+               "deploy.terrain_oracle", "deploy.video", "scripts.joystick", "scripts.view")
 
 # a rank of `train --mesh` (2 gloo ranks, 16 envs, one iteration of 4
 # steps), with the same packages made unimportable
@@ -75,15 +80,26 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
 
 
 def test_port_sources_never_name_the_reference_assets():
-    """Nothing in the port reads the reference package's asset directory
-    (reference/resources, redirected by HUMANOID_TPU_ASSETS)."""
+    """Nothing in the port names the reference package's asset directory
+    (reference/resources). The asset root, which HUMANOID_TPU_ASSETS
+    redirects, is read in assets.py alone (the shipped MJCFs that the
+    sim2sim gate can replay on), and defaults to the repository's own
+    resources/."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "humanoid_tpu_torch")):
-        paths += [os.path.join(dirpath, f) for f in files if f.endswith((".py", ".cu"))]
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith((".py", ".cu", ".cpp"))]
+    readers = []
     for path in paths:
         with open(path) as f:
             text = f.read()
-        assert "reference/resources" not in text and "HUMANOID_TPU_ASSETS" not in text, path
+        assert "reference/resources" not in text, path
+        if "HUMANOID_TPU_ASSETS" in text:
+            readers.append(os.path.relpath(path, REPO))
+    assert readers == [os.path.join("humanoid_tpu_torch", "assets.py")]
+    from humanoid_tpu_torch import assets
+
+    root = assets.asset_root()
+    assert os.environ.get("HUMANOID_TPU_ASSETS") or root == os.path.join(REPO, "resources")
 
 
 def test_a_spawned_rank_imports_nothing_of_jax_or_the_reference(tmp_path):

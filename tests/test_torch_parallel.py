@@ -487,8 +487,7 @@ def test_sweep_two_points(tmp_path, small_cfgs):
         with np.load(r["policy"]) as z:
             assert np.isfinite(z["actor_w0"]).all()
     assert lines[0]["run_dir"] != lines[1]["run_dir"]
-    with pytest.raises(NotImplementedError, match="A.7"):
-        sweep.main(["--spec", spec, "--device", "cpu", "--eval-gate"])
+    assert all(r["gate_passed"] is None for r in lines)      # no --eval-gate
 
 
 def test_bench_scaling_on_cpu_ranks(capsys):
