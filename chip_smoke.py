@@ -72,6 +72,22 @@ NativePolicy on it within 1e-5 of that checkpoint's float32 actor, one
 eval_gate.jsonl record per save (parsed to metrics where MuJoCo imports;
 where it does not, as on the card's machine, each record's error names it,
 `mujoco: absent` is printed and no record counts as a pass).
+`superstep` holds the runner's superstep (algo/runner.py::learn: one
+training iteration captured in a CUDA graph, replayed back to back, the
+metrics pulled once per dispatch) against eager iterations from the same
+seed: humanoid_ppo 8 iterations at iters_per_dispatch 1 against 2
+dispatches of 4, then humanoid_ppo_robust, humanoid_ppo_terrain,
+humanoid_ppo_penalty and d11_ppo 4 iterations against 2 dispatches of 2,
+each at 4096 envs, with the same bits in parameters, Adam, the carry, the
+generator and every iteration's metrics, and B1 (and the sampler on
+terrain) 60 times in every iteration of both; it prints env-steps/s of
+both modes and the capture's seconds; a torch.profiler trace of the
+second humanoid_ppo dispatch must show 4 graph launches and 240 B1
+kernels, and gives the card's busy share of that dispatch; last,
+scripts.train.main at its default iters_per_dispatch, 4 iterations with
+log_interval 2, must print the reference's console block at iterations 2
+and 4 and no JSON line. The other training phases run one synchronized
+iteration per dispatch (`--iters-per-dispatch 1`), as before.
 A determinism phase runs the control step's PGS and penalty instances
 several times on the same inputs and requires identical outputs (a missing
 sync between the lanes of a team shows as run-to-run differences). Then it
@@ -138,7 +154,7 @@ SMALL_N = (1, 37)                # B1 vs plain where play runs it: 1 env, a tail
 TOL_EXPORT = 1e-5                # the exports against the float32 actor
 PHASES = ("linalg", "control", "extras", "sampler", "penalty", "warm", "determinism",
           "d11_control", "train", "d11_train", "checkpoint", "d11_play", "profile", "dist",
-          "view", "deploy", "time")
+          "view", "deploy", "superstep", "time")
 D11_TASK = "d11_ppo"             # the 18-dof robot: nj 18, nb 19, nv 24
 PROFILED_ITERATIONS = 1          # the profile phase: train --profile 1 on humanoid_ppo
 DIST_ITERATIONS = 2              # the dist phase's training runs
@@ -151,6 +167,16 @@ VIEW_KEYS = "WSADQEZVPR"         # sent through handle_key along the way, one ke
 DEPLOY_ITERATIONS = 2            # train --eval-gate, saving every iteration
 GATE_SECONDS = 1.0               # the gate replay's simulated seconds
 SEED_TERRAIN = 5                 # the deploy phase's humanoid_ppo_terrain world
+# the superstep phase: (a) humanoid_ppo, 8 iterations eager against 2
+# dispatches of 4 (1 eager warm-up, then replays of the captured
+# iteration), the second dispatch traced; (b) the other B1 paths, 2
+# dispatches of 2; (c) train.main at the default iters_per_dispatch, 4
+# iterations, the console every 2
+SUPERSTEP_K, SUPERSTEP_ITERATIONS = 4, 8
+SUPERSTEP_PATHS = ("humanoid_ppo_robust", "humanoid_ppo_terrain", "humanoid_ppo_penalty", D11_TASK)
+SUPERSTEP_PATH_K = 2
+CONSOLE_ITERATIONS, CONSOLE_EVERY = 4, 2
+B1_KERNEL = "pgs_team_kernel"    # the shipping B1 instance's __global__ in a trace
 
 
 def emit(phase, **fields):
@@ -361,12 +387,14 @@ def sampler_points(env, seed=3):
 
 def train_phase(train, registry, task, iterations, log_name, log_root, sim=None, n_envs=N,
                 argv=(), on_row=None):
-    """Train `task` at n_envs envs: through scripts.train.main (with
-    `argv` added), saving under `log_root`, or, with `sim` overrides of its
-    SimCfg, through registry.make_env(env_cfg=...) and make_alg_runner,
-    saving nothing; on_row() is called after each iteration. The env and
-    its wrappers are new, so every count starts at 0. Returns (runner,
-    carry, rows, peak)."""
+    """Train `task` at n_envs envs one synchronized iteration per dispatch
+    (iters_per_dispatch 1, so that rollout and update seconds are read as
+    in earlier runs): through scripts.train.main (with `argv` added),
+    saving under `log_root`, or, with `sim` overrides of its SimCfg,
+    through registry.make_env(env_cfg=...) and make_alg_runner, saving
+    nothing; on_row() is called after each iteration. The env and its
+    wrappers are new, so every count starts at 0. Returns (runner, carry,
+    rows, peak)."""
     import dataclasses
 
     import torch
@@ -376,7 +404,8 @@ def train_phase(train, registry, task, iterations, log_name, log_root, sim=None,
 
     def log_fn(it, m, fps):
         row = {"it": it, "env_steps_per_s": fps, "rollout_s": m.rollout_s,
-               "update_s": m.update_s, "mean_reward": float(m.mean_step_reward),
+               "update_s": m.update_s, "iteration_s": m.iteration_s,
+               "mean_reward": float(m.mean_step_reward),
                "value_loss": float(m.update.value_loss),
                "surrogate_loss": float(m.update.surrogate_loss),
                "kl": float(m.update.kl), "sym_loss": float(m.update.sym_loss),
@@ -391,12 +420,15 @@ def train_phase(train, registry, task, iterations, log_name, log_root, sim=None,
     if sim is None:
         runner, carry = train.main(["--task", task, "--num-envs", str(n_envs),
                                     "--max-iterations", str(iterations), "--device", DEVICE,
-                                    "--log-root", log_root, *argv], log_fn=log_fn)
+                                    "--log-root", log_root, "--iters-per-dispatch", "1", *argv],
+                                   log_fn=log_fn)
     else:
         cfg, _ = registry.get_cfgs(task)
         cfg = cfg.replace(env=dataclasses.replace(cfg.env, num_envs=n_envs),
                           sim=dataclasses.replace(cfg.sim, **sim))
         env, _, train_cfg = registry.make_env(task, device=DEVICE, env_cfg=cfg)
+        train_cfg = train_cfg.replace(runner=dataclasses.replace(train_cfg.runner,
+                                                                 iters_per_dispatch=1))
         runner = registry.make_alg_runner(env, train_cfg, log_root=False)
         carry = runner.learn(iterations, log_fn=log_fn)
     return runner, carry, rows, torch.cuda.max_memory_allocated()
@@ -546,7 +578,7 @@ def same_training_state(a, b):
         "adam_moments": all(same_bits(x, y) for xs, ys in ((a.opt.mu, b.opt.mu),
                                                            (a.opt.nu, b.opt.nu))
                             for x, y in zip(xs, ys)),
-        "count": a.opt.count == b.opt.count, "lr": same_bits(a.opt.lr, b.opt.lr),
+        "count": int(a.opt.count) == int(b.opt.count), "lr": same_bits(a.opt.lr, b.opt.lr),
         "iteration": a.iteration == b.iteration}
 
 
@@ -825,7 +857,8 @@ def dist_phase(train, play, registry, probe, model, inputs, root, ranks=2):
         spawn_root = os.path.join(root, "spawned")
         t0 = time.perf_counter()
         returned = train.main(["--task", task, "--num-envs", str(N), "--max-iterations",
-                               str(its), "--device", DEVICE, "--log-root", spawn_root, "--mesh"])
+                               str(its), "--device", DEVICE, "--log-root", spawn_root, "--mesh",
+                               "--iters-per-dispatch", "1"])
         run_dirs = glob.glob(os.path.join(spawn_root, "*", "*"))
         files = sorted(os.listdir(run_dirs[0])) if len(run_dirs) == 1 else []
         logged = 0
@@ -851,7 +884,7 @@ def dist_phase(train, play, registry, probe, model, inputs, root, ranks=2):
     t0 = time.perf_counter()
     dist.launch(ranks, ["-m", "humanoid_tpu_torch.parallel.rank_view", views_dir, "--task", task,
                     "--num-envs", str(N), "--max-iterations", str(its), "--device", DEVICE,
-                    "--log-root", os.path.join(root, "ranks")],
+                    "--log-root", os.path.join(root, "ranks"), "--iters-per-dispatch", "1"],
                 timeout=DIST_TIMEOUT, log_dir=os.path.join(root, "rank_logs"))
     wall = time.perf_counter() - t0
     views = [torch.load(os.path.join(views_dir, f"rank{r}.pt")) for r in range(ranks)]
@@ -1152,32 +1185,224 @@ def deploy_phase(train, registry, root):
     return out
 
 
-def trace_summary(path, top=5):
-    """The device ops of a torch.profiler trace (kernels, copies, memsets)
-    with the most total time, and the share of the `rollout` span's wall
-    time in which the device ran any of them (their intervals' union)."""
+def device_events(path):
+    """(every complete event, the device's: kernels, copies, memsets) of a
+    torch.profiler trace."""
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-             and e.get("name") == "rollout"]
-    totals = {}
-    for e in device:
-        totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"]
-    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
-    out = {"device_ops": [{"name": n[:120], "total_ms": t / 1e3,
-                           "calls": sum(e["name"] == n for e in device)} for n, t in ranked],
-           "device_events": len(device), "rollout_spans": len(spans)}
-    if len(spans) != 1:
-        out["device_busy_share_of_rollout"] = None
-        return out
-    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    return events, [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def busy_us(device, t0, t1):
+    """Microseconds of [t0, t1] in which the device ran any of `device`
+    (the union of their intervals)."""
     busy, end = 0.0, t0
     for a, b in sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in device):
         if b > max(a, end):
             busy += b - max(a, end)
             end = b
+    return busy
+
+
+def graphed_mode():
+    """The runner's dispatch mode at iters_per_dispatch > 1 on DEVICE: a
+    single process on the card captures ("graph"); the CPU does not."""
+    return "graph" if DEVICE == "cuda" else "eager"
+
+
+def superstep_run(registry, task, k, iterations, trace_dir=None):
+    """Train `task` at N envs for `iterations` from the task's seed at
+    iters_per_dispatch k, saving nothing. With `trace_dir`, the dispatches
+    after the first run inside a torch.profiler trace written there (the
+    trace starts where the first dispatch would save, and stops when
+    `learn` returns, having waited for the last dispatch's metrics).
+    Returns (runner, carry, rows, wall s of `learn`, trace path or None)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from humanoid_tpu_torch.algo.runner import pack_metrics
+    from humanoid_tpu_torch.utils.profiling import device_trace
+
+    env_cfg, train_cfg = registry.get_cfgs(task)
+    env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=N))
+    train_cfg = train_cfg.replace(runner=dataclasses.replace(
+        train_cfg.runner, iters_per_dispatch=k, save_interval=k if trace_dir else 0))
+    env, _, _ = registry.make_env(task, device=DEVICE, env_cfg=env_cfg)
+    runner = registry.make_alg_runner(env, train_cfg, log_root=False)
+    carry = runner.init_carry()
+    rows = []
+
+    def log_fn(it, m, fps):
+        rows.append({"it": it, "env_steps_per_s": fps, "iteration_s": m.iteration_s,
+                     "rollout_s": m.rollout_s, "update_s": m.update_s,
+                     **{f: getattr(m, f) for f in ("kernel_launches", "sampler_launches",
+                                                   "factor_launches", "apply_launches",
+                                                   "solve_launches")},
+                     "packed": pack_metrics(m)})
+
+    trace, tracing = contextlib.ExitStack(), []
+
+    def start_trace(_carry):
+        # in place of the save at the end of each dispatch: the first one
+        # waits for the card and starts the trace; nothing is written
+        if not tracing:
+            torch.cuda.synchronize()
+            tracing.append(trace.enter_context(device_trace(trace_dir)))
+
+    if trace_dir:
+        runner.log_dir, runner._save_all = trace_dir, start_trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace:
+        carry = runner.learn(iterations, log_fn=log_fn, carry=carry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json")) if trace_dir else [None]
+    if len(traces) != 1:
+        raise AssertionError(f"superstep: expected one trace in {trace_dir}: {traces}")
+    return runner, carry, rows, wall, traces[0]
+
+
+def superstep_compare(registry, task, k, iterations):
+    """`task` trained `iterations` eagerly (iters_per_dispatch 1) and as
+    dispatches of k replays of a CUDA graph, from the same seed: the same
+    bits in parameters, Adam, the carry, the generator and every
+    iteration's metrics; the expected launches in every iteration of
+    both; env-steps/s of both. Raises on a failed check."""
+    eager, ecarry, erows, ewall, _ = superstep_run(registry, task, 1, iterations)
+    graphed, gcarry, grows, gwall, _ = superstep_run(registry, task, k, iterations)
+    expect = {"kernel_launches": STEPS_PER_ITERATION,
+              "sampler_launches": STEPS_PER_ITERATION if graphed.env.sampler is not None else 0,
+              "factor_launches": 0, "apply_launches": 0, "solve_launches": 0}
+    carry_bits = same_carry(ecarry, gcarry)
+    checks = {
+        "mode": [eager.dispatch_mode(), graphed.dispatch_mode()] == ["sync", graphed_mode()],
+        "training_state": same_training_state(eager, graphed),
+        "carry_fields_differing": [f for f, v in carry_bits.items() if not v],
+        "generator": same_bits(eager.gen.get_state(), graphed.gen.get_state()),
+        "metrics_same_bits": len(erows) == len(grows) == iterations and all(
+            same_bits(a["packed"], b["packed"]) for a, b in zip(erows, grows)),
+        "iterations_logged": [r["it"] for r in grows] == list(range(1, iterations + 1)),
+        "launches_per_iteration": all(r[f] == n for rows in (erows, grows) for r in rows
+                                      for f, n in expect.items()),
+        "graphed_rollout_update_none": all(r["rollout_s"] is None and r["update_s"] is None
+                                           for r in grows),
+    }
+    steps = STEPS_PER_ITERATION * N
+    out = {"task": task, "envs": N, "iterations": iterations, "iters_per_dispatch": k,
+           "expect_per_iteration": expect, "checks": checks,
+           "capture_s": graphed.capture_s,
+           "eager_env_steps_per_s": [r["env_steps_per_s"] for r in erows],
+           "graphed_env_steps_per_s": [r["env_steps_per_s"] for r in grows],
+           "eager_steady_env_steps_per_s": sum(r["env_steps_per_s"] for r in erows[1:])
+           / (len(erows) - 1),
+           "graphed_last_dispatch_env_steps_per_s": grows[-1]["env_steps_per_s"],
+           "eager_wall_env_steps_per_s": steps * iterations / ewall,
+           "graphed_wall_env_steps_per_s": steps * iterations / gwall,
+           "eager_wall_s": ewall, "graphed_wall_s": gwall}
+    ok = (checks["mode"] and all(checks["training_state"].values())
+          and not checks["carry_fields_differing"]
+          and all(v for f, v in checks.items()
+                  if f not in ("mode", "training_state", "carry_fields_differing")))
+    if not ok:
+        raise AssertionError(f"superstep ({task}): the graphed run is not the eager one: {out}")
+    return out
+
+
+def top_device_ops(device, top=5):
+    """The `top` device ops by total time: name, total ms, calls."""
+    totals, calls = {}, {}
+    for e in device:
+        totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"]
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+    return [{"name": n[:120], "total_ms": t / 1e3, "calls": calls[n]} for n, t in ranked]
+
+
+def graphed_trace_summary(path, replays, kernel=B1_KERNEL):
+    """A trace of one graphed dispatch (`replays` replays of the captured
+    iteration): its graph launches, the B1 kernels in it, the device ops
+    with the most time, and the share of the trace's wall time (its first
+    event to its last, host and device) in which the device ran, and of
+    the span from the first device op to the last."""
+    events, device = device_events(path)
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    d0 = min(e["ts"] for e in device)
+    d1 = max(e["ts"] + e["dur"] for e in device)
+    busy = busy_us(device, t0, t1)
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e["name"].startswith("cudaGraphLaunch")]
+    b1 = sum(kernel in e["name"] for e in device)
+    return {"graph_launches": len(launches), "b1_kernels": b1,
+            "b1_per_iteration": b1 / replays, "device_events": len(device),
+            "device_ops": top_device_ops(device), "trace_ms": (t1 - t0) / 1e3,
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / (t1 - t0),
+            "device_span_ms": (d1 - d0) / 1e3, "device_busy_share_of_span": busy / (d1 - d0)}
+
+
+def console_phase(train, registry, root):
+    """scripts.train.main on humanoid_ppo at N envs, its default
+    iters_per_dispatch, for CONSOLE_ITERATIONS iterations with log_interval
+    CONSOLE_EVERY and no log_fn: its standard output holds the reference's
+    console block at every CONSOLE_EVERY-th iteration and no JSON line."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    task_cfgs = registry.get_cfgs
+
+    def every(name):
+        e, t = task_cfgs(name)
+        return e, t.replace(runner=dataclasses.replace(t.runner, log_interval=CONSOLE_EVERY))
+
+    out = io.StringIO()
+    registry.get_cfgs = every
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            runner, _ = train.main(["--task", "humanoid_ppo", "--num-envs", str(N),
+                                    "--max-iterations", str(CONSOLE_ITERATIONS), "--device",
+                                    DEVICE, "--log-root", root])
+        wall = time.perf_counter() - t0
+    finally:
+        registry.get_cfgs = task_cfgs
+    text = out.getvalue()
+    blocks = [int(i) for i, _ in re.findall(r"Learning iteration (\d+)/(\d+)", text)]
+    json_lines = [line for line in text.splitlines() if line.lstrip().startswith("{")]
+    with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    res = {"iters_per_dispatch": runner.cfg.runner.iters_per_dispatch,
+           "mode": runner.dispatch_mode(), "console_blocks_at": blocks,
+           "json_lines": len(json_lines), "stdout_lines": len(text.splitlines()),
+           "metrics_jsonl_its": [r["it"] for r in logged],
+           "iter_time_s": [r["Perf/iter_time"] for r in logged], "wall_s": wall,
+           "capture_s": runner.capture_s}
+    want = list(range(CONSOLE_EVERY, CONSOLE_ITERATIONS + 1, CONSOLE_EVERY))
+    if not (blocks == want and not json_lines and res["mode"] == graphed_mode()
+            and res["metrics_jsonl_its"] == list(range(1, CONSOLE_ITERATIONS + 1))
+            and all(t > 0 for t in res["iter_time_s"])):
+        raise AssertionError(f"superstep (c): train's console is not the reference's: {res}\n"
+                             f"{text}")
+    return res, text
+
+
+def trace_summary(path, top=5):
+    """The device ops of a torch.profiler trace (kernels, copies, memsets)
+    with the most total time, and the share of the `rollout` span's wall
+    time in which the device ran any of them (their intervals' union)."""
+    events, device = device_events(path)
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "rollout"]
+    out = {"device_ops": top_device_ops(device, top), "device_events": len(device),
+           "rollout_spans": len(spans)}
+    if len(spans) != 1:
+        out["device_busy_share_of_rollout"] = None
+        return out
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    busy = busy_us(device, t0, t1)
     out.update(rollout_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
                device_busy_share_of_rollout=busy / (t1 - t0))
     return out
@@ -1658,6 +1883,46 @@ def run(phases, log_root, dist_ranks=2):
         deploy_out = deploy_phase(train, registry, os.path.join(log_root, "deploy"))
         summaries["deploy"] = {"wall_s": time.perf_counter() - t_path}
         emit("deploy", task="humanoid_ppo", wall_s=summaries["deploy"]["wall_s"], **deploy_out)
+
+    # ---- 4h. the runner's superstep: iterations replayed as one CUDA graph
+    # against eager iterations, in bits, on every B1 path; a trace of one
+    # graphed dispatch; train's console ----
+    if "superstep" in phases:
+        t_path = time.perf_counter()
+        task, K, its = "humanoid_ppo", SUPERSTEP_K, SUPERSTEP_ITERATIONS
+        runs = {task: superstep_compare(registry, task, K, its)}
+        emit("superstep", **runs[task])
+        torch.cuda.empty_cache()
+        traced, _, trows, _, trace = superstep_run(registry, task, K, its,
+                                                  os.path.join(log_root, "superstep_trace"))
+        graphed_trace = graphed_trace_summary(trace, K)
+        graphed_trace.update(trace_bytes=os.path.getsize(trace), capture_s=traced.capture_s,
+                             traced_dispatch_env_steps_per_s=trows[-1]["env_steps_per_s"])
+        emit("superstep_trace", task=task, envs=N, replays_traced=K,
+             eager_rollout_busy_share=(prof["device_busy_share_of_rollout"]
+                                       if "profile" in phases else None),
+             eager_rollout_busy_share_pr15=0.138, **graphed_trace)
+        if graphed_trace["graph_launches"] != K \
+                or graphed_trace["b1_kernels"] != K * STEPS_PER_ITERATION \
+                or not 0.0 < graphed_trace["device_busy_share"] <= 1.0:
+            raise AssertionError(f"superstep: the traced dispatch is not {K} replays of "
+                                 f"{STEPS_PER_ITERATION} B1 launches each: {graphed_trace}")
+        del traced
+        torch.cuda.empty_cache()
+        for path in SUPERSTEP_PATHS:
+            runs[path] = superstep_compare(registry, path, SUPERSTEP_PATH_K,
+                                           2 * SUPERSTEP_PATH_K)
+            emit("superstep", **runs[path])
+            torch.cuda.empty_cache()
+        console, text = console_phase(train, registry, os.path.join(log_root, "console"))
+        emit("superstep_console", **console)
+        print(text, flush=True)
+        summaries["superstep"] = {"wall_s": time.perf_counter() - t_path}
+        emit("superstep_summary", wall_s=summaries["superstep"]["wall_s"], **{
+            p: {"eager_steady_env_steps_per_s": r["eager_steady_env_steps_per_s"],
+                "graphed_last_dispatch_env_steps_per_s":
+                    r["graphed_last_dispatch_env_steps_per_s"], "capture_s": r["capture_s"]}
+            for p, r in runs.items()})
 
     # ---- 5. kernel times against their bounds ----
     timing = {}

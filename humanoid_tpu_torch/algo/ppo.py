@@ -50,15 +50,20 @@ class UpdateMetrics(NamedTuple):
 
 class Adam:
     """Global-norm clip, then Adam (b1 0.9, b2 0.999, eps 1e-8), then an
-    external learning rate held as a device tensor."""
+    external learning rate. The step count and the learning rate are
+    device tensors, updated in place, and the bias corrections are computed
+    from the count on the device in float32 (as optax does), so that a step
+    captured in a CUDA graph takes the current count and rate on every
+    replay."""
 
     def __init__(self, params: List[torch.Tensor], max_grad_norm: float, lr: float):
         self.params = params
         self.max_grad_norm = max_grad_norm
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
-        self.count = 0
-        self.lr = torch.tensor(float(lr), device=params[0].device)
+        dev = params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.lr = torch.tensor(float(lr), device=dev)
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
 
     @torch.no_grad()
@@ -66,9 +71,9 @@ class Adam:
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                              self.max_grad_norm / norm)
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
+        self.count.add_(1)
+        c1 = 1.0 - torch.pow(self.b1, self.count)
+        c2 = 1.0 - torch.pow(self.b2, self.count)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             g = g * factor
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
@@ -174,10 +179,10 @@ def ppo_update(net: ActorCritic, cfg: AlgorithmCfg, opt: Adam, batch: Batch,
                     kl > cfg.desired_kl * 2.0, torch.clamp(lr / 1.5, min=cfg.min_lr),
                     torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
                                 torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
-                opt.lr = lr
+                opt.lr.copy_(lr)
             opt.step(grads)
             sums += losses
     n = cfg.num_learning_epochs * nmb
     v, s, vel, sym, kl = (sums / n).unbind()
     return UpdateMetrics(value_loss=v, surrogate_loss=s, vel_loss=vel, sym_loss=sym, kl=kl,
-                         lr=opt.lr)
+                         lr=opt.lr.clone())

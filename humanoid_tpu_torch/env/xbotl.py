@@ -253,7 +253,8 @@ class XBotLEnv:
         # with the base at the origin (where a just-reset env's planes are
         # sampled: its feet spawn in the air)
         pt_body, pt_off = m.contact_points()
-        self._plane_bodies = [int(b) for b in pt_body] + [int(b) for b in m.term_sphere_body]
+        self._plane_bodies = t([int(b) for b in pt_body] + [int(b) for b in m.term_sphere_body],
+                               torch.long)
         self._plane_offsets = t(np.concatenate([np.asarray(pt_off).reshape(-1, 3),
                                                 np.asarray(m.term_sphere_offset).reshape(-1, 3)]))
         self._rt = RobotTensors.from_model(m, dev)
@@ -289,6 +290,10 @@ class XBotLEnv:
         self._identity_quat = t([1.0, 0.0, 0.0, 0.0])
         self._down = t([0.0, 0.0, -1.0])
         self._forward = t([1.0, 0.0, 0.0])
+        # the bodies the rewards read, as device indices: a Python list
+        # index would be copied to the card (and waited for) on every step
+        self._foot_bodies = t(list(m.foot_bodies), torch.long)
+        self._knee_bodies = t(list(m.knee_bodies), torch.long)
 
     # ------------------------------------------------------------------
     # static helpers
@@ -733,8 +738,7 @@ class XBotLEnv:
         reset_buf = term | time_out
 
         # ---- 5. rewards (pre-reset state) ----
-        m = self.model
-        foot_pos = diag.body_pos[:, list(m.foot_bodies)]
+        foot_pos = diag.body_pos[:, self._foot_bodies]
         # the phase counter after the switch drives the stance target; the
         # reference pose is the previous step's (the reference's one-step lag)
         gs = state.gait_start
@@ -754,8 +758,8 @@ class XBotLEnv:
             base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel, base_euler=base_euler,
             projected_gravity=projected_gravity, root_vel=root_vel,
             last_root_vel=state.last_root_vel, commands=commands, foot_pos=foot_pos,
-            knee_pos=diag.body_pos[:, list(m.knee_bodies)],
-            foot_ang_vel=diag.body_omega[:, list(m.foot_bodies)],
+            knee_pos=diag.body_pos[:, self._knee_bodies],
+            foot_ang_vel=diag.body_omega[:, self._foot_bodies],
             foot_forces=diag.foot_forces, term_force=diag.term_force, contact=contact,
             stance_mask=stance_mask, feet_air_time=air_time, first_contact=first_contact,
             feet_height=fh, dt=self.dt, cfg=cfg.rewards,

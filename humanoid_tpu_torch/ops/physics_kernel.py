@@ -182,7 +182,10 @@ def unpack_body(body, nb: int):
 def pack_body(com, inertia):
     """com (N, nb, 3), inertia (N, nb, 3, 3) -> (N, 9 nb) body rows."""
     N, nb = com.shape[:2]
-    i6 = inertia.reshape(N, nb, 9)[:, :, (0, 1, 2, 4, 5, 8)]
+    i9 = inertia.reshape(N, nb, 9)
+    # the upper triangle (0, 1, 2, 4, 5, 8) by slices: an index list would
+    # be copied to the card on every call
+    i6 = torch.cat([i9[:, :, 0:3], i9[:, :, 4:6], i9[:, :, 8:9]], dim=2)
     return torch.cat([com.reshape(N, -1), i6.reshape(N, -1)], dim=1)
 
 

@@ -82,7 +82,7 @@ def main(argv=None) -> str:
         "device": str(runner.device),
         "params": {n: cpu(p) for n, p in runner.net.named_parameters()},
         "adam_mu": [cpu(x) for x in opt.mu], "adam_nu": [cpu(x) for x in opt.nu],
-        "adam_count": opt.count, "lr": cpu(opt.lr), "iteration": runner.iteration,
+        "adam_count": int(opt.count), "lr": cpu(opt.lr), "iteration": runner.iteration,
         "rows": rows, "log_dir": runner.log_dir, "written": written,
         "obs": cpu(carry.obs), "critic_obs": cpu(carry.critic_obs),
         "cmd_x_range": (cpu(carry.env_state.cmd_x_range)

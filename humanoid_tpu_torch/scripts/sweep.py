@@ -144,7 +144,7 @@ def main(argv=None):
 
         def log_fn(it, metrics, fps):
             nonlocal last
-            last = logger.log(it, metrics, fps, metrics.rollout_s + metrics.update_s)
+            last = logger.log(it, metrics, fps, metrics.iteration_s)
 
         t0 = time.time()
         try:

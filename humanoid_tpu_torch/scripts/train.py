@@ -3,7 +3,8 @@
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo \
       --max-iterations 3 [--num-envs 4096] [--device cuda] [--urdf PATH] \
       [--log-root DIR] [--experiment-name NAME] [--run-name NAME] [--full-state] \
-      [--profile N] [--mesh [--multihost]] [--eval-gate [SECONDS]] [--wandb]
+      [--profile N] [--mesh [--multihost]] [--eval-gate [SECONDS]] [--wandb] \
+      [--iters-per-dispatch K]
   python -m humanoid_tpu_torch.scripts.train --task humanoid_ppo --resume \
       [--load-run RUN] [--checkpoint IT] --max-iterations 100
 
@@ -16,8 +17,17 @@ contact model, `--terrain` its mesh type. `--urdf PATH` replaces the
 task's stand-in robot; on an 18-dof task it takes an XBot-L URDF with
 fixed arm joints and makes its six arm joints revolute.
 
+The runner trains `runner.iters_per_dispatch` iterations per dispatch
+(algo/runner.py::OnPolicyRunner.learn; on one card, replays of a CUDA
+graph) and pulls their metrics once per dispatch; `--iters-per-dispatch K`
+sets it, and K = 1 trains one synchronized iteration at a time, with each
+iteration's rollout and update seconds. Rank 0 prints the reference's
+console block (utils/logging.py::TrainLogger.console) every
+`runner.log_interval` iterations.
+
 `--profile N` trains one warm-up iteration, then N inside a torch.profiler
-trace (utils/profiling.py::device_trace), then the rest; the trace lands in
+trace (utils/profiling.py::device_trace), then the rest, all at one
+synchronized iteration per dispatch; the trace lands in
 the run directory as <host>_<pid>.<time>.pt.trace.json, which Perfetto
 (ui.perfetto.dev) opens, and TensorBoard with its PyTorch profiler plugin
 (`tensorboard --logdir <run dir>`).
@@ -59,7 +69,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import os
 import sys
 
@@ -106,6 +115,9 @@ def get_args(argv=None):
     p.add_argument("--wandb", action="store_true",
                    help="mirror the logged scalars to an offline wandb run (goes on without "
                         "where wandb does not import)")
+    p.add_argument("--iters-per-dispatch", dest="iters_per_dispatch", type=int, metavar="K",
+                   help="iterations per dispatch (runner.iters_per_dispatch; 1: one "
+                        "synchronized iteration at a time)")
     return p.parse_args(argv)
 
 
@@ -119,8 +131,9 @@ def main(argv=None, log_fn=None):
     """Train; returns (runner, last iteration carry), or (None, None) in
     the process that started the ranks of `--mesh` (see the module's
     docstring). log_fn(it, metrics, env_steps_per_s), called on every
-    rank, replaces the default one-JSON-line-per-iteration log; rank 0
-    writes metrics.jsonl either way."""
+    rank, replaces the console block that rank 0 prints every
+    `runner.log_interval` iterations; rank 0 writes metrics.jsonl either
+    way."""
     args = get_args(argv)
     if args.multihost and not args.mesh:
         raise ValueError("--multihost takes its ranks for --mesh: pass both")
@@ -159,9 +172,19 @@ def _train(args, device, log_fn):
     env, env_cfg, train_cfg = registry.make_env(args.task, args, device=device, urdf=args.urdf,
                                                 sharded=args.mesh)
     main_rank = dist.is_main()
+    runner_over = {}
     if args.full_state:
+        runner_over["save_env_state"] = True
+    if args.iters_per_dispatch is not None:
+        if args.iters_per_dispatch < 1 or (args.profile and args.iters_per_dispatch != 1):
+            raise ValueError(f"--iters-per-dispatch {args.iters_per_dispatch}: need 1 or more, "
+                             "and 1 with --profile")
+        runner_over["iters_per_dispatch"] = args.iters_per_dispatch
+    if args.profile:
+        runner_over["iters_per_dispatch"] = 1     # the trace's rollout spans: eager iterations
+    if runner_over:
         train_cfg = train_cfg.replace(runner=dataclasses.replace(train_cfg.runner,
-                                                                 save_env_state=True))
+                                                                 **runner_over))
     carry = None
     resume_from = None
     if train_cfg.runner.resume:
@@ -191,23 +214,15 @@ def _train(args, device, log_fn):
                                   extra_argv=("--urdf", args.urdf) if args.urdf else ())
         runner.on_checkpoint = gate
 
-    def console(it, m, fps):
-        print(json.dumps({
-            "it": it, "of": total, "env_steps_per_s": fps,
-            "rollout_s": m.rollout_s, "update_s": m.update_s,
-            "mean_reward": float(m.mean_step_reward),
-            "value_loss": float(m.update.value_loss),
-            "surrogate_loss": float(m.update.surrogate_loss),
-            "sym_loss": float(m.update.sym_loss), "lr": float(m.update.lr),
-        }), flush=True)
+    every = train_cfg.runner.log_interval
 
     def on_iteration(it, m, fps):
         if logger is not None:
-            logger.log(it, m, fps, m.rollout_s + m.update_s)
+            scalars = logger.log(it, m, fps, m.iteration_s)
+            if log_fn is None and it % every == 0:
+                print(logger.console(it, total, scalars), flush=True)
         if log_fn is not None:
             log_fn(it, m, fps)
-        elif main_rank:
-            console(it, m, fps)
 
     if main_rank:
         print(f"task={args.task} envs={env_cfg.env.num_envs} iters={total} device={device} "

@@ -102,6 +102,6 @@ def load_reference_checkpoint(runner, path: str) -> None:
         scratch = from_jax_params(copy.deepcopy(net), moments[name])
         for buf, moment in zip(buffers, scratch.parameters()):
             buf.copy_(moment.detach())
-    opt.count = int(count)
-    opt.lr = torch.tensor(float(lr), device=opt.lr.device)
+    opt.count.fill_(int(count))
+    opt.lr.fill_(float(lr))
     runner.iteration = int(iteration)

@@ -146,6 +146,26 @@ def test_exact_state_resume_repeats_the_unbroken_run(tmp_path):
     assert torch.equal(resumed.gen.get_state(), unbroken.gen.get_state())
 
 
+def test_adam_count_is_an_int_in_the_checkpoint_and_resumes_in_bits(tmp_path):
+    """Adam's step count is a device tensor in the runner and an int in the
+    checkpoint; save -> load -> one more iteration (its carry and generator
+    handed over) gives the unbroken run's bits."""
+    unbroken = _runner()
+    c2 = unbroken.learn(2)
+    first = _runner()
+    carry = first.learn(1)
+    path = first.save(str(tmp_path / "model_1"))
+    count = torch.load(path, weights_only=True)["optimizer"]["count"]
+    assert type(count) is int and count == 8
+    resumed = _runner()
+    resumed.load(path)
+    assert resumed.opt.count.dtype == torch.int32 and int(resumed.opt.count) == 8
+    resumed.gen.set_state(first.gen.get_state())
+    c = resumed.learn(1, carry=carry)
+    _assert_same_training_state(unbroken, resumed)
+    _assert_same_carry(c2, c)
+
+
 @pytest.mark.parametrize("mode", ["plain", "full_state"])
 def test_runner_resumes_from_its_checkpoint(trained, tmp_path, mode):
     """A config with runner.resume set builds a runner (make_alg_runner with

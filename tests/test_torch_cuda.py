@@ -474,3 +474,44 @@ def test_cuda_factor_apply_on_18dof_mass_matrices(cuda_device):
     assert float((x - xp).abs().amax(1).div(xp.abs().amax(1)).max()) < 4e-6
     assert torch.equal(_bits(L), _bits(L2)) and torch.equal(_bits(x), _bits(x2))
     assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["humanoid_ppo", "humanoid_ppo_terrain"])
+def test_cuda_graphed_superstep_gives_the_eager_bits(cuda_device, task):
+    """learn(6) at iters_per_dispatch 3 (an eager warm-up, then replays of
+    one iteration captured in a CUDA graph) against iters_per_dispatch 1,
+    from the same seed at 512 envs and 8-step rollouts: the same bits in
+    the parameters, Adam, the carry, the generator and every iteration's
+    metrics, and 8 control-step launches in each iteration of both."""
+    import dataclasses
+
+    from humanoid_tpu_torch.algo.runner import OnPolicyRunner, _tensors, pack_metrics
+
+    def run(K):
+        env_cfg, train_cfg = registry.get_cfgs(task)
+        env_cfg = env_cfg.replace(env=dataclasses.replace(env_cfg.env, num_envs=512))
+        train_cfg = train_cfg.replace(runner=dataclasses.replace(
+            train_cfg.runner, num_steps_per_env=8, iters_per_dispatch=K))
+        env, _, _ = registry.make_env(task, device=cuda_device, env_cfg=env_cfg)
+        runner, seen = OnPolicyRunner(env, train_cfg), []
+        carry = runner.learn(6, log_fn=lambda it, m, fps: seen.append((it, m)))
+        return runner, carry, seen
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    (eager, ce, seen_e), (graphed, cg, seen_g) = run(1), run(3)
+    assert (eager.dispatch_mode(), graphed.dispatch_mode()) == ("sync", "graph")
+    assert graphed.capture_s > 0
+    for a, b in ((list(eager.net.parameters()), list(graphed.net.parameters())),
+                 (eager.opt.mu, graphed.opt.mu), (eager.opt.nu, graphed.opt.nu),
+                 ([eager.opt.count, eager.opt.lr], [graphed.opt.count, graphed.opt.lr]),
+                 (_tensors(ce), _tensors(cg))):
+        assert len(a) == len(b) and all(torch.equal(bits(x.detach()), bits(y.detach()))
+                                        for x, y in zip(a, b))
+    assert torch.equal(eager.gen.get_state(), graphed.gen.get_state())
+    assert [it for it, _ in seen_e] == [it for it, _ in seen_g] == [1, 2, 3, 4, 5, 6]
+    for (_, m), (_, n) in zip(seen_e, seen_g):
+        assert torch.equal(bits(pack_metrics(m)), bits(pack_metrics(n)))
+        assert m.kernel_launches == n.kernel_launches == 8
